@@ -6,15 +6,14 @@ images, run MatNet, map the predicted class to an algorithm.
 
 Class menu mapping: the shipped CPU weights predict over
 (MKL, CSR, DIA, ELL, COO) (README.md:5-8). In this framework the vendor
-black-box slot is the XLA dense MXU path for small matrices and the scipy
-host baseline during benchmarking; retrained ("upcycled") weights label
-classes directly with our algorithm names.
+black-box slot is the XLA dense matmul path for small matrices and the
+scipy host baseline during benchmarking; retrained ("upcycled") weights
+label classes directly with our algorithm names.
 """
 
 from __future__ import annotations
 
 import dataclasses
-import os
 from typing import Optional, Sequence
 
 import numpy as np
@@ -25,7 +24,7 @@ from ia_spgemm_tpu.models import matnet, weights
 from ia_spgemm_tpu.ops import density, features
 
 # Reference CPU class index -> our algorithm menu.
-# Class 0 is the vendor baseline (MKL there, scipy-host/dense-MXU here).
+# Class 0 is the vendor baseline (MKL there, scipy-host/dense matmul here).
 CPU_CLASS_TO_ALGORITHM = ("baseline", "csr", "dia", "ell", "coo")
 # Reference GPU classes (main.cu:539-544): CUSP (library ESC over COO) ->
 # our COO-ESC; cuSPARSE (vendor CSR) -> our CSR-ESC; NSPARSE (row-class
@@ -48,14 +47,10 @@ def select_algorithm(A: CSR, B: CSR,
                      weight_name: str = "Intel") -> AutotuneResult:
     """Pick the predicted-fastest algorithm for C = A @ B.
 
-    weight_name may be a shipped set (Intel/Amd/P100, reference parity),
-    "TPU" (the selector retrained on measured TPU winners,
-    weights/TPU_upcycled.npz), or a path to an upcycled .npz; upcycled
-    files carry their own class menu."""
+    weight_name may be a shipped set (Intel/Amd/P100, reference parity)
+    or a path to an upcycled .npz; upcycled files carry their own class
+    menu."""
     if params is None:
-        if weight_name == "TPU":
-            weight_name = os.path.join(weights.LOCAL_WEIGHTS_DIR,
-                                       "TPU_upcycled.npz")
         if weight_name.endswith(".npz"):
             params, menu = weights.load_params_npz(weight_name,
                                                    with_menu=True)
@@ -113,9 +108,8 @@ def spgemm_auto(A: CSR, B: CSR, **kwargs):
     if algo == "ell":
         Ae, Be = convert.csr_to_ell(A), convert.csr_to_ell(B)
         if Ae is not None and Be is not None:
-            # the bitonic ELL-pair kernel is the fast path; bucketed
-            # extends viability for skewed rows; row-local ELL covers the
-            # rest
+            # the flat row grid when viable; width classes extend
+            # viability to skewed rows; row-local ELL covers the rest
             from ia_spgemm_tpu.ops import bitonic as bt_ops
             plan = bt_ops.plan_bitonic(Ae, Be)
             if plan.viable:
@@ -132,7 +126,7 @@ def spgemm_auto(A: CSR, B: CSR, **kwargs):
         C = esc.spgemm_coo(convert.csr_to_coo(A), convert.csr_to_coo(B))
         return convert.coo_to_csr(C), sel
     if algo == "bitonic":
-        # upcycled menus name the flagship kernel directly
+        # upcycled menus name the row-grid engine directly
         from ia_spgemm_tpu.ops import bitonic as bt_ops
         Ae = convert.csr_to_ell(A, check_guard=False)
         Be = convert.csr_to_ell(B, check_guard=False)
@@ -160,38 +154,22 @@ def spgemm_auto(A: CSR, B: CSR, **kwargs):
         from ia_spgemm_tpu import config as _cfg
         from ia_spgemm_tpu.ops import dense_row as dr_ops
         # the same viability gates the harness applies (harness.py
-        # dense_row branch): B + C densify (HBM budget), the VMEM row
-        # budget is f32-sized (halve the cap for 8-byte values), and A
-        # must be ELL-viable — a mispredicted pick falls back to csr
-        # instead of OOMing
+        # dense_row branch): B + C densify (memory budget) and A must be
+        # ELL-viable — a mispredicted pick falls back to csr instead of
+        # running out of memory
         vb = np.dtype(A.values.dtype).itemsize
         dense_elems = B.nrows * B.ncols + A.nrows * B.ncols
         ka = convert.plan_ell_width(A)
-        if (B.ncols * max(vb // 4, 1) <= dr_ops.MAX_N_F32
-                and dense_elems * vb
-                <= _cfg.DEFAULT_CONFIG.dense_bytes_budget
+        if (dense_elems * vb <= _cfg.DEFAULT_CONFIG.dense_budget()
                 and convert.ell_viable(A.nrows, int(A.nnz), ka)):
             Ae = convert.csr_to_ell(A, width=ka, check_guard=False)
-            C = dr_ops.spgemm_dense_row(Ae, convert.csr_to_dense(B))
+            C = dr_ops.spgemm_dense_row(Ae, convert.csr_to_dense(B),
+                                        config=_cfg.DEFAULT_CONFIG)
             return convert.dense_to_csr(C), sel
         algo = "csr"
-    if algo == "hash":
-        # NSPARSE-class slot: SMEM hash accumulation (f32-only; the
-        # ValueError guards fall back like any rejected format)
-        from ia_spgemm_tpu.ops import hash_spgemm as hash_ops
-        Ae = convert.csr_to_ell(A, check_guard=False)
-        Be = convert.csr_to_ell(B, check_guard=False)
-        try:
-            # hash-ordered slots -> left-justified before the CSR view
-            C = convert.compact_ell(hash_ops.spgemm_hash(Ae, Be))
-            return _as_csr(C), sel
-        except ValueError:
-            algo = "csr"
     if algo == "serve":
         # bf16-value serving lane (documented bound: per-product rel
-        # error <= 2^-9, f32 accumulation). spgemm_auto's contract is a
-        # compacted CSR, so compact stays on; the sparse-output variant
-        # lives in the harness/serving surface (--mode serve).
+        # error <= 2^-9, f32 accumulation)
         from ia_spgemm_tpu.ops import bitonic as bt_ops
         Ae = convert.csr_to_ell(A, check_guard=False)
         Be = convert.csr_to_ell(B, check_guard=False)
@@ -206,7 +184,7 @@ def spgemm_auto(A: CSR, B: CSR, **kwargs):
         algo = "csr"
     if algo == "compensated":
         try:
-            return esc.spgemm_csr_compensated(A, B), sel
+            return _as_csr(esc.spgemm_csr_compensated(A, B)), sel
         except ValueError:
             algo = "csr"
     if algo == "baseline" and A.nrows * B.ncols <= 4 * 1024 * 1024:

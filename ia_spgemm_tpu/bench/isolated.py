@@ -19,9 +19,10 @@ amortized by the persistent XLA compilation cache). Use it when timeout
 fidelity matters (unknown/adversarial matrices); the in-process path
 remains the default for interactive sweeps.
 
-NOTE (single-tenant TPU): the parent must not be holding the TPU when
-workers target it — pass backend="cpu" to keep workers off the chip, or
-call this from a driver that has not touched jax devices yet.
+One process per device: a JAX process reserves most of a GPU's memory
+when it first touches it, so the parent must not hold the device when
+workers target it. The CLI pins its own process to the CPU under
+--isolate; pass backend="cpu" to keep workers off the device instead.
 """
 
 from __future__ import annotations

@@ -39,6 +39,8 @@ def format_table(report: BenchReport) -> str:
         ]))
         if r.error:
             lines.append(f"    ! {r.error}")
+        elif r.skipped and r.skip_reason:
+            lines.append(f"    - {r.skip_reason}")
     lines.append("-" * 42)
     if report.winner:
         lines.append(f"Fastest algorithm: {report.winner}")

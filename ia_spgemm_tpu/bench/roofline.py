@@ -1,13 +1,15 @@
 """Per-kernel roofline analysis.
 
-The reference only reports wall-clock + GFLOPS (main.cpp:981-991); for a
-TPU framework the roofline against chip peaks is the first-class perf
-metric (BASELINE.md: "per-chip roofline of every kernel"). Each kernel gets
-an analytic cost model (useful flops + minimum HBM traffic); measured time
-then yields achieved GFLOPS / GB/s and the distance to the relevant roof.
+The reference only reports wall-clock + GFLOPS (main.cpp:981-991); here
+the roofline against the device's published peaks is a first-class
+metric. Each kernel gets an analytic cost model (useful flops + minimum
+memory traffic); measured time then yields achieved GFLOPS / GB/s and the
+distance to the relevant roof.
 
 SpGEMM is bandwidth-bound almost by definition (O(1) flops per byte), so
-the % of HBM peak is the honest "speed-of-light" number.
+the % of HBM peak is the honest "speed-of-light" number. State it beside
+the card's power limit: a card set below its maximum cannot reach the
+published peak.
 """
 
 from __future__ import annotations
@@ -20,24 +22,32 @@ from typing import Dict, Optional
 class ChipSpec:
     name: str
     hbm_gbs: float          # HBM bandwidth, GB/s
-    peak_f32_gflops: float  # VPU/MXU fp32
-    peak_bf16_gflops: float
+    peak_f32_gflops: float  # float32 outside the matrix units
+    peak_bf16_gflops: float  # bf16 dense matrix rate
 
 
-# Public specs for TPU v5e (Google Cloud docs: 197 bf16 TFLOPs, 819 GB/s).
-TPU_V5E = ChipSpec(name="tpu_v5e", hbm_gbs=819.0,
-                   peak_f32_gflops=49_000.0, peak_bf16_gflops=197_000.0)
+# Published peaks keyed by jax's device_kind. Source: NVIDIA H100 data
+# sheet, SXM part, dense rates without sparsity, at the full 700 W power
+# limit — 3.35 TB/s HBM3, 67 TFLOP/s float32, 989 TFLOP/s bf16.
+PEAKS = {
+    "NVIDIA H100 80GB HBM3": ChipSpec(
+        name="h100_sxm", hbm_gbs=3350.0, peak_f32_gflops=67_000.0,
+        peak_bf16_gflops=989_000.0),
+}
 
 
-def detect_chip() -> ChipSpec:
-    import jax
+def detect_chip(kind: Optional[str] = None) -> ChipSpec:
+    """Peaks of the first device (or of `kind`). A device kind missing
+    from PEAKS is an error, never a default."""
+    if kind is None:
+        import jax
+        kind = jax.devices()[0].device_kind
     try:
-        kind = jax.devices()[0].device_kind.lower()
-    except Exception:
-        kind = ""
-    if "v5" in kind and ("lite" in kind or "v5e" in kind):
-        return TPU_V5E
-    return TPU_V5E  # default assumption; override explicitly when needed
+        return PEAKS[kind]
+    except KeyError:
+        raise KeyError(
+            f"no published peaks for device kind {kind!r}; add them to "
+            "bench/roofline.py PEAKS with their source") from None
 
 
 @dataclasses.dataclass(frozen=True)
@@ -51,8 +61,8 @@ def cost_esc(expansion: int, nnz_a: int, nnz_b: int, nnz_c: int,
              value_bytes: int = 4, index_bytes: int = 4) -> KernelCost:
     """ESC pipeline: reads A, B once; the expanded (key, value) stream is
     written + re-read by the sort passes. Modeled with the minimum: one
-    materialization + one sort pass + output write (real bitonic sorts do
-    log2 n passes — the roofline reports distance to THIS floor, which is
+    materialization + one sort pass + output write (real sorts make
+    several passes — the roofline reports distance to THIS floor, which is
     what a perfect single-pass kernel could hit)."""
     entry = value_bytes + index_bytes
     read_inputs = (nnz_a + nnz_b) * entry
@@ -60,63 +70,6 @@ def cost_esc(expansion: int, nnz_a: int, nnz_b: int, nnz_c: int,
     out = nnz_c * entry
     return KernelCost(flops=2.0 * expansion,
                       bytes=read_inputs + stream + out)
-
-
-def cost_dense(m: int, k: int, n: int, value_bytes: int = 4) -> KernelCost:
-    return KernelCost(flops=2.0 * m * k * n,
-                      bytes=(m * k + k * n + m * n) * value_bytes)
-
-
-def cost_dense_row(m: int, k_width: int, n: int, nnz_a: int,
-                   value_bytes: int = 4) -> KernelCost:
-    """Dense-row accumulator: every A entry pulls one aligned 8-row group
-    of B (8n values) and writes C once."""
-    return KernelCost(flops=2.0 * nnz_a * n,
-                      bytes=(nnz_a * 8 * n + m * n) * value_bytes)
-
-
-def cost_dia(m: int, nd_a: int, nd_b: int, nd_c: int,
-             value_bytes: int = 4) -> KernelCost:
-    """Minimum traffic: read both diagonal tables once, write C's once
-    (the scan re-reads C per pair; this is the perfect-cache floor)."""
-    return KernelCost(flops=2.0 * m * nd_a * nd_b,
-                      bytes=m * (nd_a + nd_b + nd_c) * value_bytes)
-
-
-def cost_bitonic(m: int, width: int, nnz_a: int,
-                 value_bytes: int = 4, index_bytes: int = 4) -> KernelCost:
-    """Row-local bitonic SpGEMM: the expand gather reads one packed B run
-    per A entry and writes the (m, width) product buffer; the Pallas kernel
-    reads it once, sorts in VMEM, writes the (m, width) ELL result."""
-    entry = value_bytes + index_bytes
-    buf = m * width * entry
-    return KernelCost(flops=2.0 * m * width,
-                      bytes=nnz_a * entry + buf * 3)
-
-
-def cost_multiclass(class_rows, nnz_a: int, nnz_c: int,
-                    value_bytes: int = 4,
-                    index_bytes: int = 4) -> KernelCost:
-    """Width-class bitonic SpGEMM (ops/bitonic.py multiclass): same 3-pass
-    product-buffer structure as cost_bitonic but each class row pays its
-    OWN pow2 width, plus the nnz-scaled BlockCSR output gather.
-
-    class_rows: iterable of (row_count, width) pairs from the plan."""
-    entry = value_bytes + index_bytes
-    buf = sum(c * w for c, w in class_rows) * entry
-    flops = 2.0 * sum(c * w for c, w in class_rows)
-    out = nnz_c * entry * 2            # class blocks written + gathered out
-    return KernelCost(flops=flops,
-                      bytes=nnz_a * entry + buf * 3 + out)
-
-
-def cost_ell(m: int, ka: int, kb: int, kc: int,
-             value_bytes: int = 4, index_bytes: int = 4) -> KernelCost:
-    entry = value_bytes + index_bytes
-    expanded = m * ka * kb
-    return KernelCost(flops=2.0 * expanded,
-                      bytes=(m * (ka + kb) + expanded * 2 * 2
-                             + m * kc) * entry)
 
 
 def analyze(time_ms: float, cost: KernelCost,

@@ -9,6 +9,7 @@ detail/dia/common_dia.h:56 50x size guard; GPU detail/dia/common_dia.h:51
 from __future__ import annotations
 
 import dataclasses
+import functools
 
 # Density-representation image side length (reference: main.cpp:516 `malloc2d(128,128)`).
 DENSITY_IMAGE_SIZE: int = 128
@@ -36,8 +37,8 @@ class SpGEMMConfig:
     """Tunables for the SpGEMM planner/kernels."""
 
     # Pad data-dependent capacities up to the next power of two to bound the
-    # number of distinct compiled shapes (the TPU answer to the reference's
-    # exact mallocs, which XLA's static shapes cannot express).
+    # number of distinct compiled shapes (the static-shape answer to the
+    # reference's exact mallocs, which XLA cannot express).
     bucket_capacities: bool = True
     # Viability guard ratio (reference CPU rule).
     size_guard_ratio: float = SIZE_GUARD_RATIO_CPU
@@ -49,14 +50,51 @@ class SpGEMMConfig:
     # (20x-baseline is the normal rule) — applies to both the isolated
     # and the in-process benchmark paths.
     default_timeout_s: float = 300.0
-    # HBM budget for the dense/dense_row routes' materialized dense
-    # operands + output (the reference's `choice` guard, adapted to the
-    # failure mode that matters on a 16 GB chip: a 65536^2 densify is an
-    # OOM, not a 50x-footprint inefficiency).
-    dense_bytes_budget: float = 6 * 2**30
+    # Device-memory budget for the dense/dense_row routes' materialized
+    # dense operands + output (the reference's `choice` guard, adapted to
+    # the failure mode that matters on a device: a 65536^2 densify is an
+    # out-of-memory error, not a 50x-footprint inefficiency). None derives
+    # it from the device's memory (DENSE_FRACTION).
+    dense_bytes_budget: float | None = None
+
+    def dense_budget(self) -> float:
+        if self.dense_bytes_budget is not None:
+            return self.dense_bytes_budget
+        return memory_budget(DENSE_FRACTION)
 
 
 DEFAULT_CONFIG = SpGEMMConfig()
+
+# The CPU backend reports no device-memory limit. Planners there size
+# their budgets from this fixed figure, so that a test's route choice
+# does not depend on the host it runs on.
+CPU_DEVICE_BYTES = 16 * 2**30
+# Share of device memory the dense routes may materialize.
+DENSE_FRACTION = 3 / 8
+
+
+@functools.lru_cache(maxsize=None)
+def device_memory_bytes() -> int:
+    """Memory the first device lets this process allocate: the
+    allocator's `bytes_limit` on an accelerator, CPU_DEVICE_BYTES on the
+    CPU backend. An accelerator that reports no limit is an error — the
+    planners would otherwise size their workspaces blind."""
+    import jax
+    dev = jax.devices()[0]
+    if dev.platform == "cpu":
+        return CPU_DEVICE_BYTES
+    limit = (dev.memory_stats() or {}).get("bytes_limit")
+    if not limit:
+        raise RuntimeError(
+            f"{dev.device_kind} reports no memory limit; cannot size the "
+            "planners' budgets")
+    return int(limit)
+
+
+def memory_budget(fraction: float) -> int:
+    """`fraction` of the device's memory, in bytes — the one source of
+    every planner budget (workspaces, product grids, dense routes)."""
+    return int(device_memory_bytes() * fraction)
 
 
 def bucket_capacity(n: int, *, enabled: bool = True, minimum: int = 8) -> int:

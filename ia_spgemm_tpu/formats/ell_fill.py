@@ -1,18 +1,11 @@
-"""Fast CSR->ELL fill for TPU.
+"""Gather-based CSR->ELL fill.
 
 The reference's CSRtoELL packs rows left-justified with a serial loop
-(ell/common_ell.h:30-77). Two device strategies:
+(ell/common_ell.h:30-77). Two device strategies exist:
 
-- scatter (formats/convert.py _csr_to_ell_fill): one scatter per nnz —
-  ~9 ns/element on v5e, measured ~40 ms at 557k nnz. Kept for fp64/CPU.
+- scatter (formats/convert.py _csr_to_ell_fill): one scatter per nnz.
 - gather (here): out[r, j] = entries[rp[r] + j], masked at j >= len(r) —
-  one packed (col | value-bits) gather at (m*K) positions. Gathers beat
-  scatters ~4x on v5e, and packing halves them.
-
-A per-row DMA kernel was tried first and is the long-term plan, but
-Mosaic requires 1-D HBM DMA slices aligned to 1024 elements — arbitrary
-rp[r] offsets need an aligned-window + per-row rotate pipeline; until
-that lands the gather form is the TPU path.
+  one packed (col | value-bits) gather at (m*K) positions.
 """
 
 from __future__ import annotations

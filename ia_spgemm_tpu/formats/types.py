@@ -1,14 +1,14 @@
 """Sparse storage formats as pytrees of jnp arrays.
 
-TPU-first re-design of the reference's POD structs
+Re-design of the reference's POD structs for XLA
 (reference: IA-SPGEMM-CPU_release/detail/format.h:7-76):
 
 - All arrays have *static* shapes (XLA requirement); the true number of
   stored entries `nnz` travels as a 0-d int32 leaf so kernels can produce
   data-dependent results under jit, padded to a static capacity.
 - 2-D layouts (ELL values/col_ind as (rows, K); DIA values as (rows, ndiag))
-  are dense jnp arrays — the natural TPU tiling — instead of the reference's
-  row-pointer `malloc2d` tables (detail/common.h:19-31).
+  are dense jnp arrays instead of the reference's row-pointer `malloc2d`
+  tables (detail/common.h:19-31).
 - Padding conventions: CSR/COO tail entries have col_ind == ncols (a sentinel
   that sorts after every real column) and values == 0; ELL empty slots have
   col_ind == -1 and values == 0 (the reference leaves ELL padding
@@ -17,21 +17,33 @@ TPU-first re-design of the reference's POD structs
 
 from __future__ import annotations
 
+import dataclasses
 from typing import Tuple
 
 import jax
 import jax.numpy as jnp
 import numpy as np
-from flax import struct
 
 Shape2 = Tuple[int, int]
+
+
+def pytree_dataclass(cls):
+    """A frozen dataclass registered as a JAX pytree: fields made with
+    static_field() are static metadata (part of the treedef, like a
+    shape), every other field is a leaf."""
+    return jax.tree_util.register_dataclass(
+        dataclasses.dataclass(frozen=True)(cls))
+
+
+def static_field(**kwargs):
+    return dataclasses.field(metadata={"static": True}, **kwargs)
 
 
 def _as_nnz(nnz) -> jax.Array:
     return jnp.asarray(nnz, dtype=jnp.int32)
 
 
-@struct.dataclass
+@pytree_dataclass
 class CSR:
     """Compressed sparse row (reference: detail/format.h:29-39 CsrMatrix)."""
 
@@ -39,12 +51,12 @@ class CSR:
     col_ind: jax.Array  # (capacity,) int32, tail padded with ncols
     values: jax.Array   # (capacity,) float
     nnz: jax.Array      # 0-d int32 — true entry count
-    shape: Shape2 = struct.field(pytree_node=False)
+    shape: Shape2 = static_field()
     # Compensated (double-double) results: the low-order halves of the
     # values, as a DEVICE array. values + values_lo is exact in float64;
-    # TPUs have no native f64, so the pair stays resident on device and
-    # consumers combine on the host (values_f64) or reduce under two-sum
-    # on device (checksum). None for plain results.
+    # the pair stays resident on device (JAX runs without 64-bit types by
+    # default) and consumers combine on the host (values_f64) or reduce
+    # under two-sum on device (checksum). None for plain results.
     values_lo: jax.Array | None = None
 
     @property
@@ -110,7 +122,7 @@ class CSR:
     def values_f64(self) -> np.ndarray:
         """Stored values as HOST float64. For compensated results this is
         the exact hi + lo combination (numpy f64 — jnp would round back to
-        f32 with x64 disabled, the TPU default)."""
+        f32 with x64 disabled, JAX's default)."""
         if self.values_lo is None:
             return np.asarray(self.values, np.float64)
         return (np.asarray(self.values, np.float64)
@@ -138,7 +150,7 @@ class CSR:
                           + np.asarray(lo, np.float64))
 
 
-@struct.dataclass
+@pytree_dataclass
 class COO:
     """Coordinate format. The reference's CooMatrix keeps BOTH a CSR-style
     row_offset pointer and per-entry row_ind (detail/format.h:16-27); we do
@@ -149,7 +161,7 @@ class COO:
     col_ind: jax.Array     # (capacity,) int32, tail padded with ncols
     values: jax.Array      # (capacity,) float
     nnz: jax.Array         # 0-d int32
-    shape: Shape2 = struct.field(pytree_node=False)
+    shape: Shape2 = static_field()
 
     @property
     def nrows(self) -> int:
@@ -179,16 +191,17 @@ class COO:
         return jnp.sum(self.values)
 
 
-@struct.dataclass
+@pytree_dataclass
 class ELL:
-    """ELLPACK: left-justified padded rows — the most TPU-natural sparse
-    layout (reference: detail/format.h:65-76 EllMatrix)."""
+    """ELLPACK: left-justified padded rows — a rectangular layout every
+    row-grid engine consumes directly (reference: detail/format.h:65-76
+    EllMatrix)."""
 
     col_ind: jax.Array  # (nrows, K) int32, empty slots == -1
     values: jax.Array   # (nrows, K) float, empty slots == 0
     nnz_row: jax.Array  # (nrows,) int32
     nnz: jax.Array      # 0-d int32
-    shape: Shape2 = struct.field(pytree_node=False)
+    shape: Shape2 = static_field()
 
     @property
     def nrows(self) -> int:
@@ -220,7 +233,7 @@ class ELL:
         return jnp.sum(self.values)
 
 
-@struct.dataclass
+@pytree_dataclass
 class DIA:
     """Diagonal format (reference: detail/format.h:53-63 DiaMatrix).
 
@@ -236,7 +249,7 @@ class DIA:
     values: jax.Array    # (nrows, ndiag) float
     diag_ind: jax.Array  # (nrows + ncols - 1,) int32, -1 if absent
     nnz: jax.Array       # 0-d int32 — nnz of the originating matrix
-    shape: Shape2 = struct.field(pytree_node=False)
+    shape: Shape2 = static_field()
 
     @property
     def nrows(self) -> int:
@@ -276,9 +289,9 @@ class DIA:
         return jnp.sum(self.values)
 
 
-@struct.dataclass
+@pytree_dataclass
 class BlockCSR:
-    """128-aligned padded CSR — the TPU-native CSR output layout.
+    """128-aligned padded CSR — the width-class engine's CSR output.
 
     Row i's entries occupy whole 128-lane blocks [blk_ptr[i],
     blk_ptr[i+1]) of the (capacity_blocks, 128) block arrays; the first
@@ -288,13 +301,11 @@ class BlockCSR:
     per width class, so the assembly gather map is a constant). Blocks
     past blk_ptr[nrows] are all-padding.
 
-    Rationale: an exact CSR's rows start at arbitrary nnz offsets, which
-    on TPU means misaligned element scatters (~10 ns/element on v5e) or
-    1024-aligned-only HBM DMAs; aligning every row to 128-lane blocks
-    makes assembly from per-class kernel outputs ONE flat row-gather
-    (gathers of >=128-lane rows run at HBM bandwidth) at the cost of
-    <=127 padding slots per row. The reference's CSR output
-    (detail/format.h:29-39) plays this role on byte-addressable hosts.
+    Rationale: aligning every row to 128-slot blocks makes assembly from
+    per-class outputs ONE constant-index block gather at the cost of
+    <=127 padding slots per row; an exact CSR would need the rows'
+    data-dependent offsets. The reference's CSR output
+    (detail/format.h:29-39) plays this role; bcsr_to_csr converts.
     """
 
     blk_ptr: jax.Array      # (nrows+1,) int32, block offsets
@@ -302,7 +313,7 @@ class BlockCSR:
     val_blocks: jax.Array   # (capacity_blocks, 128) float, padding == 0
     nnz_row: jax.Array      # (nrows,) int32 — true entries per row
     nnz: jax.Array          # 0-d int32
-    shape: Shape2 = struct.field(pytree_node=False)
+    shape: Shape2 = static_field()
 
     @property
     def nrows(self) -> int:
@@ -343,7 +354,7 @@ class BlockCSR:
         return jnp.sum(self.val_blocks)
 
 
-@struct.dataclass
+@pytree_dataclass
 class SlabCSR:
     """Slab-packed CSR — whole rows packed back-to-back into fixed-width
     sort slabs (ops/slab.py), the slab engine's native output.
@@ -353,13 +364,10 @@ class SlabCSR:
     key = (row - slab_first_row[s]) * ncols + col. Pad slots carry
     key == -1 / value == 0, so checksum() is one free reduction.
 
-    Rationale (same family as BlockCSR): an exact flat CSR needs
-    per-element scatters or dynamic-offset HBM DMA writes — the latter
-    crashes this toolchain's Mosaic remote-compile (reports/
-    slab_probe.json history) and the former runs ~10 ns/element. The
-    slab layout is already row-major-sorted and exact; flattening is a
-    consumer-side choice (to_csr) priced separately, exactly like
-    BlockCSR/ELL consumers.
+    Rationale (same family as BlockCSR): the slab layout is already
+    row-major-sorted and exact; flattening to CSR (slab_to_csr) is a
+    consumer-side choice priced separately, exactly like BlockCSR/ELL
+    consumers.
     """
 
     keys: jax.Array            # (S, W) int32 packed (local_row, col)
@@ -367,7 +375,7 @@ class SlabCSR:
     nnz_slab: jax.Array        # (S,) int32 — survivors per slab
     slab_first_row: jax.Array  # (S,) int32 — global row of local row 0
     nnz: jax.Array             # 0-d int32
-    shape: Shape2 = struct.field(pytree_node=False)
+    shape: Shape2 = static_field()
     # Compensated (double-double) results: low-order halves (same
     # contract as CSR.values_lo). None for plain results.
     values_lo: jax.Array | None = None
@@ -417,9 +425,9 @@ class SlabCSR:
                              shape=self.shape).tocsr()
 
 
-@struct.dataclass
+@pytree_dataclass
 class Dense:
-    """Dense fallback / MXU reference path
+    """Dense fallback / matrix-unit reference path
     (reference: detail/format.h:7-14 DenseMatrix)."""
 
     values: jax.Array  # (nrows, ncols)

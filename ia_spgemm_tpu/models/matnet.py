@@ -1,4 +1,4 @@
-"""MatNet — the input-aware format/algorithm selector, in Flax.
+"""MatNet — the input-aware format/algorithm selector, in plain `lax`.
 
 Topology replicated from the reference's Keras graph (MatNet.py:45-79),
 verified against the shipped weight shapes (NetWeights/Intel_weights.h5):
@@ -15,8 +15,15 @@ head:
   (CPU classes: MKL/CSR/DIA/ELL/COO, 5; GPU: CUSP/cuSPARSE/NSPARSE, 3 —
    main.cu:539-544)
 
+Parameters are a nested dict — {branch1, branch2: {conv1, conv2, conv3,
+dense}, feature_dense, head}, each {kernel, bias} with Keras's HWIO conv
+and (in, out) dense layouts — so the shipped weights load unchanged
+(models/weights.py). Every convolution and dense layer runs at
+Precision.HIGHEST: a reduced-precision matrix unit (TF32 on recent GPUs)
+could otherwise flip the argmax against the reference network.
+
 Unlike the reference, which rebuilds the Keras graph and reloads the h5 on
-every prediction (MatNet.py:45-94, K.clear_session), the Flax module is
+every prediction (MatNet.py:45-94, K.clear_session), the forward pass is
 jitted once and parameters stay resident on device.
 """
 
@@ -26,55 +33,51 @@ import functools
 
 import jax
 import jax.numpy as jnp
-from flax import linen as nn
+from jax import lax
 
 # CPU-build class menu (README.md:5-8, main.cpp report order).
 CPU_CLASSES = ("mkl", "csr", "dia", "ell", "coo")
 # GPU-build class menu (main.cu:539-544).
 GPU_CLASSES = ("cusp", "cusparse", "nsparse")
 
-
-class ImageBranch(nn.Module):
-    """One density-image CNN branch."""
-
-    @nn.compact
-    def __call__(self, x):  # x: (B, 128, 128, 1)
-        x = nn.Conv(16, (3, 3), strides=(1, 1), padding="VALID",
-                    name="conv1")(x)
-        x = jnp.tanh(x)
-        x = nn.max_pool(x, (2, 2), strides=(2, 2))
-        x = nn.Conv(16, (5, 5), strides=(2, 2), padding="SAME",
-                    name="conv2")(x)
-        x = jnp.tanh(x)
-        x = nn.max_pool(x, (2, 2), strides=(2, 2))
-        x = nn.Conv(16, (5, 5), strides=(2, 2), padding="SAME",
-                    name="conv3")(x)
-        x = jnp.tanh(x)
-        x = nn.max_pool(x, (2, 2), strides=(2, 2))
-        x = x.reshape((x.shape[0], -1))  # (B, 256), HWC row-major like TF
-        x = nn.Dense(32, name="dense")(x)
-        return jnp.tanh(x)
+_HIGHEST = lax.Precision.HIGHEST
 
 
-class MatNet(nn.Module):
-    num_classes: int = 5
-    num_features: int = 26
-
-    @nn.compact
-    def __call__(self, img1, img2, feats):
-        """img1/img2: (B, 128, 128, 1) normalized x255/max; feats: (B, nf)."""
-        b1 = ImageBranch(name="branch1")(img1)
-        b2 = ImageBranch(name="branch2")(img2)
-        f = nn.Dense(self.num_features, name="feature_dense")(feats)
-        f = jnp.tanh(f)
-        h = jnp.concatenate([b1, b2, f], axis=-1)
-        return nn.Dense(self.num_classes, name="head")(h)  # logits
+def _conv(x, p, stride: int, padding: str):
+    y = lax.conv_general_dilated(
+        x, p["kernel"], (stride, stride), padding,
+        dimension_numbers=("NHWC", "HWIO", "NHWC"), precision=_HIGHEST)
+    return y + p["bias"]
 
 
-@functools.partial(jax.jit, static_argnames=("num_classes", "num_features"))
-def _forward(params, img1, img2, feats, *, num_classes, num_features):
-    model = MatNet(num_classes=num_classes, num_features=num_features)
-    return model.apply({"params": params}, img1, img2, feats)
+def _dense(x, p):
+    return jnp.dot(x, p["kernel"], precision=_HIGHEST) + p["bias"]
+
+
+def _max_pool2(x):
+    return lax.reduce_window(x, -jnp.inf, lax.max, (1, 2, 2, 1),
+                             (1, 2, 2, 1), "VALID")
+
+
+def _branch(p, x):
+    """One density-image CNN branch: (B, 128, 128, 1) -> (B, 32)."""
+    x = _max_pool2(jnp.tanh(_conv(x, p["conv1"], 1, "VALID")))
+    x = _max_pool2(jnp.tanh(_conv(x, p["conv2"], 2, "SAME")))
+    x = _max_pool2(jnp.tanh(_conv(x, p["conv3"], 2, "SAME")))
+    x = x.reshape((x.shape[0], -1))  # (B, 256), HWC row-major like TF
+    return jnp.tanh(_dense(x, p["dense"]))
+
+
+def forward(params, img1, img2, feats):
+    """Logits. img1/img2: (B, 128, 128, 1) normalized x255/max;
+    feats: (B, nf). Class and feature counts follow from params."""
+    b1 = _branch(params["branch1"], img1)
+    b2 = _branch(params["branch2"], img2)
+    f = jnp.tanh(_dense(feats, params["feature_dense"]))
+    return _dense(jnp.concatenate([b1, b2, f], axis=-1), params["head"])
+
+
+_forward = jax.jit(forward)
 
 
 def predict_logits(params, img1, img2, feats, *, num_classes=5,
@@ -82,8 +85,11 @@ def predict_logits(params, img1, img2, feats, *, num_classes=5,
     img1 = jnp.asarray(img1, jnp.float32).reshape(1, 128, 128, 1)
     img2 = jnp.asarray(img2, jnp.float32).reshape(1, 128, 128, 1)
     feats = jnp.asarray(feats, jnp.float32).reshape(1, num_features)
-    return _forward(params, img1, img2, feats, num_classes=num_classes,
-                    num_features=num_features)[0]
+    logits = _forward(params, img1, img2, feats)[0]
+    if logits.shape != (num_classes,):
+        raise ValueError(f"params give {logits.shape[0]} classes, "
+                         f"expected {num_classes}")
+    return logits
 
 
 def predict_class(params, img1, img2, feats, *, num_classes=5,
@@ -95,9 +101,23 @@ def predict_class(params, img1, img2, feats, *, num_classes=5,
     return int(jnp.argmax(logits))
 
 
+@functools.partial(jax.jit, static_argnames=("num_classes", "num_features"))
 def init_params(key, num_classes=5, num_features=26):
-    model = MatNet(num_classes=num_classes, num_features=num_features)
-    dummy = (jnp.zeros((1, 128, 128, 1), jnp.float32),
-             jnp.zeros((1, 128, 128, 1), jnp.float32),
-             jnp.zeros((1, num_features), jnp.float32))
-    return model.init(key, *dummy)["params"]
+    """Random parameters: LeCun-normal kernels, zero biases."""
+    init = jax.nn.initializers.lecun_normal()
+    shapes = {
+        "conv1": (3, 3, 1, 16), "conv2": (5, 5, 16, 16),
+        "conv3": (5, 5, 16, 16), "dense": (256, 32),
+    }
+    keys = iter(jax.random.split(key, 10))
+
+    def layer(shape):
+        return {"kernel": init(next(keys), shape, jnp.float32),
+                "bias": jnp.zeros((shape[-1],), jnp.float32)}
+
+    return {
+        "branch1": {name: layer(s) for name, s in shapes.items()},
+        "branch2": {name: layer(s) for name, s in shapes.items()},
+        "feature_dense": layer((num_features, num_features)),
+        "head": layer((64 + num_features, num_classes)),
+    }

@@ -2,12 +2,12 @@
 
 The reference ships only inference + pretrained weights (no training code
 anywhere in the tree); to retarget the selector at OUR algorithm menu and
-TPU timings, this module provides a full data-parallel training loop:
+measured timings, this module provides a full data-parallel training loop:
 softmax cross-entropy over (img1, img2, features) -> winning-algorithm
 labels harvested from the benchmark harness.
 
-TPU-first: batch is sharded over the mesh's data axis; gradients are
-averaged by jit-inserted collectives (GSPMD), bfloat16-friendly convs.
+With a mesh, the batch is sharded over its data axis and gradients are
+averaged by jit-inserted collectives (GSPMD).
 """
 
 from __future__ import annotations
@@ -20,7 +20,7 @@ import jax.numpy as jnp
 import numpy as np
 import optax
 
-from ia_spgemm_tpu.models.matnet import MatNet, init_params
+from ia_spgemm_tpu.models.matnet import forward, init_params
 
 
 @dataclasses.dataclass
@@ -33,10 +33,10 @@ class TrainConfig:
     seed: int = 0
 
 
-def make_train_step(model: MatNet, tx: optax.GradientTransformation):
+def make_train_step(tx: optax.GradientTransformation):
     def loss_fn(params, batch):
         img1, img2, feats, labels = batch
-        logits = model.apply({"params": params}, img1, img2, feats)
+        logits = forward(params, img1, img2, feats)
         loss = optax.softmax_cross_entropy_with_integer_labels(
             logits, labels).mean()
         acc = jnp.mean(jnp.argmax(logits, -1) == labels)
@@ -59,14 +59,12 @@ def train(dataset: Iterator[Tuple], config: TrainConfig = TrainConfig(),
     """Train MatNet. `dataset` yields (img1, img2, feats, labels) batches
     with leading batch dim. With a mesh, batches are sharded over its first
     axis (pure data parallelism — the model is tiny, ~56k params)."""
-    model = MatNet(num_classes=config.num_classes,
-                   num_features=config.num_features)
     if params is None:
         params = init_params(jax.random.PRNGKey(config.seed),
                              config.num_classes, config.num_features)
     tx = optax.adam(config.learning_rate)
     opt_state = tx.init(params)
-    step_fn = make_train_step(model, tx)
+    step_fn = make_train_step(tx)
 
     if mesh is not None:
         from jax.sharding import NamedSharding, PartitionSpec as P

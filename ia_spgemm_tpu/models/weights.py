@@ -1,4 +1,4 @@
-"""Keras h5 -> Flax parameter import for MatNet.
+"""Keras h5 -> MatNet parameter import.
 
 The reference ships pretrained per-architecture weights
 (NetWeights/{Intel,Amd,P100}_weights.h5, Keras 2.1 HDF5 layout). Layer
@@ -8,9 +8,9 @@ naming, from the Keras creation order in MatNet.py:45-79:
   dense_1       feature Dense(nf)   dense_2       branch-1 Dense(256->32)
   dense_3       branch-2 Dense      dense_4       head Dense(-> classes)
 
-Keras Conv2D kernels are HWIO and Dense kernels (in, out) — both identical
-to Flax's conventions, so no transposition is needed (verified by parity
-tests vs an independent numpy forward).
+Keras Conv2D kernels are HWIO and Dense kernels (in, out) — the layouts
+models/matnet.py consumes, so no transposition is needed (verified by
+parity tests vs an independent numpy forward).
 """
 
 from __future__ import annotations
@@ -34,7 +34,7 @@ def _h5_layer(f, name: str):
 
 
 def load_keras_h5(path: str) -> Dict:
-    """Read a reference weight file into a Flax `params` dict for MatNet."""
+    """Read a reference weight file into a MatNet `params` dict."""
     import h5py
     with h5py.File(path, "r") as f:
         params = {

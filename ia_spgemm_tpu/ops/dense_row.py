@@ -1,134 +1,56 @@
-"""Pallas dense-row-accumulator SpGEMM (Gustavson on the VPU).
+"""Dense-row-accumulator SpGEMM (Gustavson with a dense accumulator).
 
 The reference's CPU kernels accumulate each output row into a dense
 per-thread array indexed by column (`sums[col] += v`, with a mask/linked
-list to track touched columns — csr/common_csr.h:130-189). The TPU analogue
-keeps a (TILE_ROWS, n) f32 accumulator tile in VMEM and turns each A entry
-into one vector FMA of width n against the corresponding B row, DMA'd from
-HBM on demand:
+list to track touched columns — csr/common_csr.h:130-189). Here the
+accumulator is the whole (m, n) output and each ELL slot of A is one
+fused gather-multiply-add over every row:
 
-    for each row r in tile, for each ELL slot kk:
+    for each ELL slot kk:
         acc[r, :] += A_val[r, kk] * B[A_col[r, kk], :]
 
-Double-buffered row DMA hides the HBM fetch behind the FMA. This is the
-winning strategy when C's rows are dense-ish (n moderate): no sort, no
-scatter, sequential-friendly. B is taken dense ((k, n) in HBM); the
-densification is format-conversion time, like any other format's.
+a `lax.scan` over the Ka slots. The update is an elementwise
+multiply-add, never a matrix product, so no reduced-precision matrix
+unit can round it. This wins when C's rows are dense-ish (n moderate):
+no sort, no scatter. B is taken dense ((k, n)); the densification is
+format-conversion time, like any other format's.
 """
 
 from __future__ import annotations
 
-import functools
-
 import jax
 import jax.numpy as jnp
-from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
 
+from ia_spgemm_tpu import config as cfg
 from ia_spgemm_tpu.formats.types import Dense, ELL
 
-DEFAULT_TILE_ROWS = 8
-# VMEM budget: acc tile + 2 B-row buffers + A tiles must fit in ~16 MB.
-MAX_N_F32 = 64 * 1024
 
-
-def _kernel(a_col_ref, a_val_ref, b_hbm_ref, out_ref, brow, sem):
-    tile_rows, K = a_col_ref.shape
-    total = tile_rows * K
-
-    out_ref[:] = jnp.zeros_like(out_ref)
-
-    def col_at(idx):
-        r = idx // K
-        kk = idx - r * K
-        return r, kk, a_col_ref[r, kk]
-
-    def get_dma(slot, idx):
-        _, _, col = col_at(idx)
-        col = jnp.clip(col, 0, b_hbm_ref.shape[0] - 1)
-        # HBM slices must honor the (8, 128) tiling: fetch the aligned
-        # 8-row group containing the wanted row, pick the row in VMEM.
-        base = pl.multiple_of((col // 8) * 8, 8)
-        return pltpu.make_async_copy(
-            b_hbm_ref.at[pl.ds(base, 8)], brow.at[slot], sem.at[slot])
-
-    # warm-up: start the first fetch
-    get_dma(0, 0).start()
-
-    def body(idx, _):
-        slot = jax.lax.rem(idx, 2)
-        nxt = jax.lax.rem(idx + 1, 2)
-
-        @pl.when(idx + 1 < total)
-        def _():
-            get_dma(nxt, idx + 1).start()
-
-        get_dma(slot, idx).wait()
-        r, kk, col = col_at(idx)
-        v = a_val_ref[r, kk]
-
-        @pl.when(col >= 0)
-        def _():
-            sub = jax.lax.rem(col, jnp.asarray(8, col.dtype))
-            out_ref[r, :] += v * brow[slot, sub, :]
-        return 0
-
-    jax.lax.fori_loop(0, total, body, 0)
-
-
-@functools.partial(jax.jit, static_argnames=("tile_rows", "interpret"))
-def _dense_row_call(a_col, a_val, b_dense, *, tile_rows: int,
-                    interpret: bool = False):
-    m, K = a_col.shape
+@jax.jit
+def _dense_row_core(a_col, a_val, b_dense):
+    m, _ = a_col.shape
     k, n = b_dense.shape
-    grid = (pl.cdiv(m, tile_rows),)
-    return pl.pallas_call(
-        _kernel,
-        grid=grid,
-        in_specs=[
-            # A tiles are read ONE SCALAR AT A TIME with dynamic indices —
-            # that's an SMEM access pattern (VMEM requires lane-aligned
-            # vector loads; Mosaic rejects dynamic lane offsets).
-            pl.BlockSpec((tile_rows, K), lambda i: (i, 0),
-                         memory_space=pltpu.SMEM),
-            pl.BlockSpec((tile_rows, K), lambda i: (i, 0),
-                         memory_space=pltpu.SMEM),
-            pl.BlockSpec(memory_space=pl.ANY),  # B stays in HBM
-        ],
-        out_specs=pl.BlockSpec((tile_rows, n), lambda i: (i, 0),
-                               memory_space=pltpu.VMEM),
-        out_shape=jax.ShapeDtypeStruct((m, n), b_dense.dtype),
-        scratch_shapes=[
-            # double-buffered aligned 8-row B groups
-            pltpu.VMEM((2, 8, n), b_dense.dtype),
-            pltpu.SemaphoreType.DMA((2,)),
-        ],
-        interpret=interpret,
-    )(a_col, a_val, b_dense)
+
+    def slot(acc, kk):
+        col = a_col[:, kk]
+        v = jnp.where(col >= 0, a_val[:, kk], 0).astype(b_dense.dtype)
+        return acc + v[:, None] * b_dense[jnp.clip(col, 0, k - 1)], None
+
+    acc, _ = jax.lax.scan(slot, jnp.zeros((m, n), b_dense.dtype),
+                          jnp.arange(a_col.shape[1]))
+    return acc
 
 
 def spgemm_dense_row(A: ELL, B: Dense, *,
-                     tile_rows: int = DEFAULT_TILE_ROWS,
-                     interpret: bool | None = None) -> Dense:
-    """C = A @ B, A in ELL, B dense; Pallas dense-row accumulator.
-
-    `interpret` defaults to True off-TPU (tests on the CPU backend run the
-    same kernel through the Pallas interpreter)."""
+                     config: cfg.SpGEMMConfig = cfg.DEFAULT_CONFIG) -> Dense:
+    """C = A @ B, A in ELL, B dense; dense-row accumulator. Raises
+    ValueError when B and the (m, n) accumulator exceed the config's
+    dense budget."""
     if A.ncols != B.nrows:
         raise ValueError(f"shape mismatch: {A.shape} @ {B.shape}")
-    if B.ncols > MAX_N_F32:
+    itemsize = jnp.dtype(B.dtype).itemsize
+    need = (A.nrows + B.nrows) * B.ncols * itemsize
+    if need > config.dense_budget():
         raise ValueError(
-            f"n={B.ncols} exceeds the dense-row VMEM budget ({MAX_N_F32})")
-    if interpret is None:
-        interpret = jax.default_backend() != "tpu"
-    # pad B to the (8, 128) HBM tiling so row-group DMAs stay in bounds
-    k, n = B.shape
-    k8 = -(-k // 8) * 8
-    n128 = -(-n // 128) * 128
-    b = B.values
-    if (k8, n128) != (k, n):
-        b = jnp.zeros((k8, n128), b.dtype).at[:k, :n].set(b)
-    vals = _dense_row_call(A.col_ind, A.values.astype(B.dtype),
-                           b, tile_rows=tile_rows,
-                           interpret=interpret)
-    return Dense(values=vals[:, :n] if n128 != n else vals)
+            f"dense_row needs {need} bytes for B and the accumulator, "
+            f"over the dense budget ({config.dense_budget():.0f})")
+    return Dense(values=_dense_row_core(A.col_ind, A.values, B.values))

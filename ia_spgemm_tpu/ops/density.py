@@ -32,7 +32,7 @@ def _splat(dim: int, size: int) -> int:
 @functools.partial(jax.jit, static_argnames=("m", "n", "size"))
 def _density_core(row_ptr, col_ind, nnz, *, m: int, n: int, size: int):
     # 'long long' counts in the reference (main.cpp:516); int64 when x64 is
-    # on (CPU tests, exactness), int32 on TPU (counts <= nnz always fit
+    # on (CPU tests, exactness), int32 otherwise (counts <= nnz always fit
     # there for any matrix whose indices fit int32).
     idt = jnp.int64 if jax.config.jax_enable_x64 else jnp.int32
     cap = col_ind.shape[0]

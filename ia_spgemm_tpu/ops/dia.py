@@ -4,7 +4,7 @@ The reference's DIA_mul_DIA (dia/common_dia.h:101-195) runs three phases:
 occupancy of output diagonals, offset construction, and a triple loop
 accumulating C[i][slot(dA+dB)] += A[i][sA] * B[i+dA][sB].
 
-TPU version: a diagonal of C at offset dC = dA + dB receives, for every
+Here: a diagonal of C at offset dC = dA + dB receives, for every
 contributing pair, the elementwise product of A's dA-column with a
 dA-shifted view of B's dB-column — pure vector ops of length nrows, scanned
 over the (static) ndA x ndB pair list. Output diagonal set is computed by a
@@ -85,8 +85,7 @@ def _dia_core(a_offs, a_vals, b_offs, b_vals, c_offs, *, m: int, ka: int,
 # m=1024 occupies ~2047 diagonals -> 4.2M scan steps x (m, ndC) carry —
 # an hours-long kernel that XLA cannot cancel once dispatched: the
 # harness watchdog abandons its thread but the DEVICE stays wedged and
-# every later dispatch in the process dies with "TPU device error"
-# (observed killing the r5 harvest on the smalldense family). The
+# every later dispatch in the process fails with a device error. The
 # reference survives the same blow-up only because pthread_cancel kills
 # host OpenMP work (main.cpp:770-793); device work must be rejected
 # BEFORE dispatch instead. Budget in scalar FMA terms (pairs * m):

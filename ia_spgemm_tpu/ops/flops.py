@@ -22,6 +22,18 @@ def get_flop(A: CSR, B: CSR) -> int:
     return int(b_len[np.clip(colA, 0, B.nrows - 1)].sum())
 
 
+def row_flops(A: CSR, B: CSR) -> np.ndarray:
+    """Exact intermediate products per A row (host, nnz-scaled numpy)."""
+    from ia_spgemm_tpu.utils import hostcache
+    nnzA = int(A.nnz)
+    a_rp = hostcache.host_view(A.row_ptr).astype(np.int64)
+    a_col = hostcache.host_view(A.col_ind)[:nnzA].astype(np.int64)
+    b_len = np.diff(hostcache.host_view(B.row_ptr)).astype(np.int64)
+    ecs = np.concatenate(
+        [[0], np.cumsum(b_len[np.clip(a_col, 0, B.nrows - 1)])])
+    return ecs[a_rp[1:]] - ecs[a_rp[:-1]]
+
+
 @jax.jit
 def get_flop_jit(a_col_ind, a_nnz, b_row_ptr) -> jax.Array:
     """Traceable variant for use inside jitted pipelines."""

@@ -1,13 +1,14 @@
 """Row-partitioned distributed SpGEMM over a device mesh.
 
 The capability the single-process reference lacks (SURVEY.md §2.7): shard
-A and C by row blocks across chips; B is either replicated (small B) or
-row-sharded and exchanged with one all_gather over ICI, then each chip runs
-the local ESC kernel on its row block. C comes back row-sharded.
+A and C by row blocks across devices; B is either replicated (small B) or
+row-sharded and exchanged with one all_gather over the interconnect, then
+each device runs the local ESC kernel on its row block. C comes back
+row-sharded.
 
 Layout: a ShardedCSR stacks per-shard arrays along a leading device axis —
   row_ptr: (D, m_loc+1) LOCAL offsets; col/val: (D, cap_loc); nnz: (D,)
-sharded with PartitionSpec('x') so each chip holds exactly its block.
+sharded with PartitionSpec('x') so each device holds exactly its block.
 Row blocks can be balanced by row count or by flops (prefix-sum of per-row
 intermediate-product counts — the skew the reference's CV feature measures,
 csr/common_csr.h:276).
@@ -22,15 +23,14 @@ from typing import Tuple
 import jax
 import jax.numpy as jnp
 import numpy as np
-from flax import struct
 from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
 
 from ia_spgemm_tpu import config as cfg
-from ia_spgemm_tpu.formats.types import CSR
+from ia_spgemm_tpu.formats.types import CSR, pytree_dataclass, static_field
 from ia_spgemm_tpu.ops import esc
 
 
-@struct.dataclass
+@pytree_dataclass
 class ShardedCSR:
     """Row-block-sharded CSR: leading dim = shard."""
 
@@ -39,7 +39,7 @@ class ShardedCSR:
     values: jax.Array     # (D, cap_loc)
     nnz: jax.Array        # (D,) int32
     row_start: jax.Array  # (D,) int32 — global row of each block's first row
-    shape: Tuple[int, int] = struct.field(pytree_node=False)
+    shape: Tuple[int, int] = static_field()
 
     @property
     def num_shards(self) -> int:
@@ -205,7 +205,7 @@ def _dist_fn(mesh: Mesh, e_cap: int, out_cap: int, m_loc: int,
                  b_rp, b_col, b_val, b_nnz, b_rs):
         a_rp, a_col, a_val = a_rp[0], a_col[0], a_val[0]
         a_nnz = a_nnz[0]
-        # all_gather B's row blocks over ICI, reassemble global CSR
+        # all_gather B's row blocks, reassemble global CSR
         g_rp = jax.lax.all_gather(b_rp[0], axis)       # (D, k_loc+1)
         g_col = jax.lax.all_gather(b_col[0], axis)
         g_val = jax.lax.all_gather(b_val[0], axis)
@@ -237,7 +237,7 @@ def dist_spgemm(A: ShardedCSR, B, mesh: Mesh,
 
     B may be a replicated CSR (no communication — pure data parallelism) or
     a ShardedCSR (one all_gather over the mesh axis reassembles it on every
-    chip before the local ESC kernel).
+    device before the local ESC kernel).
 
     e_cap/out_cap are per-shard static capacities (use plan_dist_spgemm).
     """

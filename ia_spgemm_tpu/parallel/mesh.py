@@ -1,5 +1,5 @@
 """Mesh helpers. The reference is single-process (SURVEY.md §2.7: no
-MPI/NCCL anywhere); multi-chip scale-out is this framework's addition,
+MPI/NCCL anywhere); multi-device scale-out is this framework's addition,
 expressed through jax.sharding.Mesh + shard_map collectives."""
 
 from __future__ import annotations

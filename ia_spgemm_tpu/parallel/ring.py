@@ -1,24 +1,23 @@
-"""Ring-overlapped distributed SpGEMM (the flagship multi-chip path).
+"""Ring-overlapped distributed SpGEMM.
 
 The reference is a single process (SURVEY.md §2.7); the distributed
 capability this framework adds is row-partitioned SpGEMM. The simple paths
 (parallel/distributed.py) replicate or all_gather B, which materializes all
-of B on every chip. This module streams B around a ring instead:
+of B on every device. This module streams B around a ring instead:
 
   - A and C are row-sharded ELL blocks (one per device).
   - B is row-sharded into D equal blocks; at step s device d holds the
     block owned by (d + s) % D.
-  - Each step, the device gathers the product runs for its A entries whose
+  - Each step, the device gathers the products for its A entries whose
     column falls in the circulating block, while lax.ppermute sends the
-    block to the left neighbor — XLA's async collective-permute lets the
-    transfer ride ICI concurrently with the gather (the overlap the
-    BASELINE.md north star asks for). Peak per-chip B footprint is one
-    block (2 in flight), not all of B.
-  - After D steps every product run is filled; one row-local bitonic
-    sort-compress (ops/bitonic.py) finishes the row block in VMEM.
+    block to the next device — an async collective-permute (NCCL over
+    NVLink on a GPU host) that can overlap the gather. Peak per-device B
+    footprint is one block (2 in flight), not all of B.
+  - After D steps every product slot is filled; one row-local
+    sort-compress (ops/rowsort.py) finishes the row block.
 
-Capacity is static: each A row has ka runs of `run` slots regardless of
-which step supplies them, so the product buffer is allocated once and
+Capacity is static: each A row has ka * kb product slots regardless of
+which step supplies them, so the product grid is allocated once and
 steps only select into it (no dynamic shapes anywhere).
 """
 
@@ -30,14 +29,14 @@ from typing import Tuple
 import jax
 import jax.numpy as jnp
 import numpy as np
-from flax import struct
 from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
 
-from ia_spgemm_tpu.formats.types import ELL
+from ia_spgemm_tpu.formats.types import ELL, pytree_dataclass, static_field
 from ia_spgemm_tpu.ops import bitonic
+from ia_spgemm_tpu.ops.rowsort import SENTINEL, sort_compress_rows
 
 
-@struct.dataclass
+@pytree_dataclass
 class ShardedELL:
     """Row-block-sharded ELL: leading dim = shard.
 
@@ -49,8 +48,8 @@ class ShardedELL:
     values: jax.Array    # (D, m_loc, K)
     nnz_row: jax.Array   # (D, m_loc) int32
     row_map: jax.Array   # (D, m_loc) int32 global row ids, -1 padding
-    shape: Tuple[int, int] = struct.field(pytree_node=False)
-    contiguous: bool = struct.field(pytree_node=False, default=True)
+    shape: Tuple[int, int] = static_field()
+    contiguous: bool = static_field(default=True)
 
     @property
     def num_shards(self) -> int:
@@ -132,43 +131,28 @@ def partition_rows_ell(A: ELL, num_shards: int,
     return out
 
 
-def plan_ring(A: ELL, B: ELL, num_shards: int,
-              allow_split: bool = True) -> bitonic.BitonicPlan:
+def plan_ring(A: ELL, B: ELL, num_shards: int) -> bitonic.BitonicPlan:
     m_loc = -(-A.nrows // num_shards)
     return bitonic.plan_bitonic_dims(m_loc, A.max_nnz_per_row,
-                                     B.max_nnz_per_row,
-                                     allow_split=allow_split)
+                                     B.max_nnz_per_row)
 
 
 def ring_spgemm(A: ShardedELL, B: ShardedELL, mesh: Mesh,
-                plan: bitonic.BitonicPlan,
-                interpret: bool | None = None,
-                use_rdma="auto") -> ShardedELL:
+                plan: bitonic.BitonicPlan) -> ShardedELL:
     """C = A @ B, A and C row-sharded, B streamed around the ring.
 
-    B may be partitioned with any balance: each chip builds the inverse
-    row map (global B row -> owning shard, local slot) once from an
-    all_gather of B.row_map, so membership tests against the circulating
-    block are O(1) per entry (round 1 required contiguous B blocks).
-    Sub-run splitting (plan.chunks > 1) is applied to the circulating
-    block's packed table exactly as the single-chip expand does."""
+    B may be partitioned with any balance: each device builds the
+    inverse row map (global B row -> owning shard, local slot) once from
+    an all_gather of B.row_map, so membership tests against the
+    circulating block are O(1) per entry."""
     if not plan.viable:
-        # a non-viable plan carries placeholder dims; driving it into
-        # the Pallas kernel means a Mosaic compile blowup, not an error
         raise ValueError(
-            f"ring plan not viable (width {plan.width}); split sub-runs "
-            "further or fall back to the distributed ESC path")
-    if interpret is None:
-        interpret = jax.default_backend() != "tpu"
+            f"ring plan not viable (width {plan.width}): "
+            f"{plan.reason}; fall back to the distributed ESC path")
     m, _ = A.shape
     n = B.shape[1]
-    if use_rdma == "auto":
-        from ia_spgemm_tpu.parallel.rdma_ring import rdma_available
-        use_rdma = rdma_available(mesh)
     fn = _ring_fn(mesh, A.num_shards, A.rows_per_shard, B.rows_per_shard,
-                  A.width, B.width, jnp.dtype(A.values.dtype),
-                  plan.run, plan.width, plan.tile_rows, interpret,
-                  plan.chunks, B.contiguous, bool(use_rdma))
+                  A.width, B.width, min(plan.width, n), B.contiguous)
     col, val, nnz_row = fn(A.col_ind, A.values, B.col_ind, B.values,
                            B.row_map)
     return ShardedELL(col_ind=col, values=val, nnz_row=nnz_row,
@@ -178,17 +162,13 @@ def ring_spgemm(A: ShardedELL, B: ShardedELL, mesh: Mesh,
 
 @functools.lru_cache(maxsize=64)
 def _ring_fn(mesh: Mesh, D: int, m_loc: int, k_loc: int, ka: int, kb: int,
-             dtype, run: int, width: int, tile_rows: int, interpret: bool,
-             chunks: int = 1, b_contiguous: bool = True,
-             use_rdma: bool = False):
+             out_width: int, b_contiguous: bool = True):
     """Build + jit the sharded ring program once per (mesh, shapes) —
     rebuilding shard_map per call retraces and recompiles every time."""
     from jax import shard_map
 
     axis = mesh.axis_names[0]
     perm = [(i, (i - 1) % D) for i in range(D)]
-    ke = ka * chunks          # expanded entry count per row
-    kc = k_loc * chunks       # circulating table rows (fwd half)
 
     def local_fn(a_col, a_val, b_col, b_val, b_rmap):
         a_col, a_val = a_col[0], a_val[0]          # (m_loc, ka)
@@ -221,67 +201,28 @@ def _ring_fn(mesh: Mesh, D: int, m_loc: int, k_loc: int, ka: int, kb: int,
             owner_of = owner_tab[a_safe]
             local_of = local_tab[a_safe]
 
-        # --- sub-run chunk expansion of the A entries ---
-        if chunks > 1:
-            sub = jax.lax.broadcasted_iota(jnp.int32, (1, ka, chunks), 2)
-            owner_of = jnp.broadcast_to(
-                owner_of[:, :, None], (m_loc, ka, chunks)).reshape(m_loc,
-                                                                   ke)
-            local_of = (local_of[:, :, None] * chunks + sub).reshape(
-                m_loc, ke)
-            a_val_e = jnp.broadcast_to(
-                a_val[:, :, None], (m_loc, ka, chunks)).reshape(m_loc, ke)
-        else:
-            a_val_e = a_val
-
-        key0 = jnp.full((m_loc, ke, run), bitonic.SENTINEL, jnp.int32)
-        val0 = jnp.zeros((m_loc, ke, run), a_val.dtype)
+        key0 = jnp.full((m_loc, ka, kb), SENTINEL, jnp.int32)
+        val0 = jnp.zeros((m_loc, ka, kb), a_val.dtype)
 
         def step(s, carry):
             bc, bv, key, val = carry
             owner = jax.lax.rem(d + s, jnp.int32(D))
-            in_blk = owner_of == owner
-            # doubled packed table: forward + reversed rows (odd A entries
-            # read the reversed half -> alternating-direction runs)
-            bc_p = jnp.pad(bc, ((0, 0), (0, chunks * run - kb)),
-                           constant_values=-1).reshape(kc, run)
-            bv_p = jnp.pad(bv, ((0, 0), (0, chunks * run - kb))
-                           ).reshape(kc, run)
-            parity = (jax.lax.broadcasted_iota(jnp.int32, (1, ke), 1) & 1)
-            rows = (local_of + kc * parity).reshape(-1)
-            gc, gv = bitonic.doubled_table_gather(
-                bc_p, bv_p, rows, run=run, out_shape=(m_loc, ke, run))
-            sel = in_blk[:, :, None] & (gc >= 0)
-            key = jnp.where(in_blk[:, :, None],
-                            jnp.where(sel, gc, bitonic.SENTINEL), key)
-            val = jnp.where(sel, a_val_e[:, :, None] * gv, val)
-            # send the block on while the gather above computes: either
-            # XLA's async collective-permute or the explicit Pallas RDMA
-            # hop (parallel/rdma_ring.py; real multi-chip ICI only)
-            if use_rdma:
-                from ia_spgemm_tpu.parallel.rdma_ring import ring_hop_rdma
-                bc = ring_hop_rdma(bc, axis=axis, D=D, collective_id=11)
-                bv = ring_hop_rdma(bv, axis=axis, D=D, collective_id=12)
-            else:
-                bc = jax.lax.ppermute(bc, axis, perm)
-                bv = jax.lax.ppermute(bv, axis, perm)
+            in_blk = (owner_of == owner)[:, :, None]
+            gc = bc[local_of]                       # (m_loc, ka, kb)
+            sel = in_blk & (gc >= 0)
+            key = jnp.where(in_blk, jnp.where(sel, gc, SENTINEL), key)
+            val = jnp.where(sel, a_val[:, :, None] * bv[local_of], val)
+            # send the block on while the gather above computes
+            bc = jax.lax.ppermute(bc, axis, perm)
+            bv = jax.lax.ppermute(bv, axis, perm)
             return bc, bv, key, val
 
         _, _, key, val = jax.lax.fori_loop(
             0, D, step, (b_col, b_val, key0, val0))
-
-        key = key.reshape(m_loc, ke * run)
-        val = val.reshape(m_loc, ke * run)
-        pad = width - ke * run
-        if pad:
-            key = jnp.pad(key, ((0, 0), (0, pad)),
-                          constant_values=bitonic.SENTINEL)
-            val = jnp.pad(val, ((0, 0), (0, pad)))
-        col, out_val, nnz_row = bitonic._sort_compress_rows(
-            key, val, width=width, start_kk=2 * run,
-            tile_rows=tile_rows, interpret=interpret,
-            static_strides=width <= bitonic.STATIC_STRIDE_MAX_WIDTH)
-        return col[None], out_val[None], nnz_row[:, 0][None]
+        col, out_val, nnz_row = sort_compress_rows(
+            key.reshape(m_loc, ka * kb), val.reshape(m_loc, ka * kb),
+            out_width=out_width)
+        return col[None], out_val[None], nnz_row[None]
 
     return jax.jit(shard_map(
         local_fn, mesh=mesh,

@@ -1,9 +1,9 @@
 """Segmented-broadcast primitives shared by kernels and conversions.
 
-On TPU, a binary search (jnp.searchsorted) over k queries costs ~log2(n)
-sequential gather passes — measured ~70x slower than one scatter-max plus
-one cumulative max for the common "which segment covers position e" lookup.
-These helpers implement that fast form. No intra-package imports (safe for
+A binary search (jnp.searchsorted) over k queries costs ~log2(n)
+sequential gather passes; one scatter-max plus one cumulative max answers
+the common "which segment covers position e" lookup in two passes.
+These helpers implement that form. No intra-package imports (safe for
 both formats/ and ops/).
 """
 

@@ -3,7 +3,7 @@
 // The reference is a C++ main that embeds the Python interpreter to call
 // its ML selector (IA-SPGEMM-CPU_release/main.cpp:682-704: Py_Initialize,
 // sys.path.append, import MatNet, PyEval_CallObject). This framework
-// inverts the ratio — the compute pipeline is JAX/Pallas Python, the
+// inverts the ratio — the compute pipeline is JAX Python, the
 // driver is native — but the bridge is the same embedded-CPython C API:
 // initialize the interpreter against the project's venv, import
 // ia_spgemm_tpu.cli.main, call main(argv[1:]) and return its exit code.

@@ -1,5 +1,5 @@
 """Independent pure-numpy forward pass for MatNet, implementing TF/Keras
-conv semantics from first principles — the parity oracle for the Flax model.
+conv semantics from first principles — the parity oracle for models/matnet.py.
 """
 
 import numpy as np

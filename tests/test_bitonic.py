@@ -1,6 +1,6 @@
-"""Row-local bitonic SpGEMM: oracle parity (interpret mode on the CPU
-mesh), canonical ELL output form, planner viability guards, and the
-harness/autotune wiring."""
+"""Row-local row-grid SpGEMM (ops/bitonic.py): oracle parity, canonical
+ELL output form, planner viability guards, and the harness/autotune
+wiring."""
 
 import numpy as np
 import pytest
@@ -47,24 +47,18 @@ def test_bitonic_matches_oracle(m, k, n, da, db, seed):
 
 
 def test_bitonic_subrun_split():
-    """kb just past a power of two triggers sub-run splitting (chunks>1)
-    when it lowers the padded width; results must match the oracle."""
+    """kb just past a power of two: the flat grid is exactly Ka*Kb slots
+    wide (no pow2 run padding); results must match the oracle."""
     rng = np.random.default_rng(7)
     m = 64
-    # rows of exactly 40 nnz: full_run pads to 64; chunks of 16 cover 48
     cols = np.stack([rng.choice(m, 40, replace=False) for _ in range(m)])
     rows = np.repeat(np.arange(m), 40)
     a = sp.coo_matrix((rng.standard_normal(m * 40),
                        (rows, cols.ravel())), shape=(m, m)).tocsr()
     plan = bitonic.plan_bitonic(_ell(a), _ell(a))
-    assert plan.chunks > 1, plan
-    unsplit = bitonic.plan_bitonic(_ell(a), _ell(a), allow_split=False)
-    assert plan.width < unsplit.width, (plan, unsplit)
+    assert plan.viable and plan.width == 40 * 40, plan
     C = bitonic.spgemm_bitonic(_ell(a), _ell(a), plan)
     _check(a, a, C)
-    # forced row-major layout takes the same chunked expansion
-    C2 = bitonic.spgemm_bitonic(_ell(a), _ell(a), plan, layout="rows")
-    _check(a, a, C2)
 
 
 def test_bitonic_canonical_output():
@@ -104,7 +98,7 @@ def test_bitonic_rectangular_chain():
 
 def test_plan_rejects_wide_products():
     plan = bitonic.plan_bitonic_dims(1000, 200, 200)  # 40000 > MAX_WIDTH
-    assert not plan.viable and "lanes" in plan.reason
+    assert not plan.viable and "slots per row" in plan.reason
 
 
 def test_plan_rejects_product_budget():
@@ -115,8 +109,8 @@ def test_plan_rejects_product_budget():
 def test_spgemm_raises_on_nonviable():
     a = fixtures.random_csr(16, 16, density=0.3, seed=1)
     A = _ell(a)
-    bad = bitonic.BitonicPlan(width=2 * bitonic.MAX_WIDTH, run=8,
-                              tile_rows=8, viable=False, reason="x")
+    bad = bitonic.BitonicPlan(width=2 * bitonic.MAX_WIDTH, viable=False,
+                              reason="x")
     with pytest.raises(ValueError):
         bitonic.spgemm_bitonic(A, A, bad)
 
@@ -160,7 +154,7 @@ def test_bucketed_matches_plain():
                     (ss.gen_uniform, dict(nnz_per_row=5, seed=2))):
         a = gen(160, **kw).astype(np.float32)
         A = _ell(a)
-        Cb = bitonic.spgemm_bitonic_bucketed(A, A)
+        Cb = bitonic.spgemm_bitonic_multiclass(A, A)
         want = (a @ a).tocsr()
         d = abs(Cb.to_scipy() - want)
         err = (d.max() if d.nnz else 0.0) / max(1.0, abs(want).max())
@@ -178,18 +172,7 @@ def test_bucketed_viability_beyond_global_max():
                   random_state=np.random.RandomState(8), format="csr")
     a.data[:] = rng.standard_normal(a.nnz)
     A = _ell(a)
-    assert bitonic.spgemm_bitonic_bucketed(A, A) is not None
-
-
-def test_transposed_layout_matches(tmp_path):
-    a = fixtures.random_csr(40, 40, density=0.15, seed=12)
-    A = _ell(a)
-    C1 = bitonic.spgemm_bitonic(A, A, layout="rows")
-    C2 = bitonic.spgemm_bitonic(A, A, layout="cols")
-    assert (np.asarray(C1.col_ind) == np.asarray(C2.col_ind)).all()
-    np.testing.assert_allclose(np.asarray(C1.values),
-                               np.asarray(C2.values), rtol=1e-6)
-    assert (np.asarray(C1.nnz_row) == np.asarray(C2.nnz_row)).all()
+    assert bitonic.spgemm_bitonic_multiclass(A, A) is not None
 
 
 def test_bitonic_out_width_cap():
@@ -236,8 +219,7 @@ def test_multiclass_matches_oracle_skewed():
     A = _ell(a)
     C = bitonic.spgemm_bitonic_multiclass(A, A)
     assert C is not None
-    plan, W = bitonic.plan_multiclass(np.asarray(A.nnz_row),
-                                      A.max_nnz_per_row)
+    plan, W = bitonic.plan_multiclass(bitonic.row_products(A, A))
     assert len(plan.widths) > 1  # the skew actually created classes
     _check(a, a, C)
 
@@ -251,9 +233,9 @@ def test_multiclass_empty_and_uniform():
 
 
 def test_multiclass_ragged_b_skew():
-    """B-skew: a few huge B rows among tiny ones. The chunked layout makes
-    every entry pay for B's longest row (inviable here); the ragged
-    fragment layout keeps each entry at its own B row's size."""
+    """B-skew: a few huge B rows among tiny ones. The ragged expansion
+    keeps each entry at its own B row's size, so the class widths follow
+    each row's true product count."""
     rng = np.random.default_rng(13)
     m = 256
     rows, cols, vals = [], [], []
@@ -266,61 +248,16 @@ def test_multiclass_ragged_b_skew():
             vals.append(float(rng.standard_normal()))
     a = sp.coo_matrix((vals, (rows, cols)), shape=(m, m)).tocsr()
     A = _ell(a)
-    plan, W = bitonic.plan_multiclass(
-        np.asarray(A.nnz_row), A.max_nnz_per_row,
-        a_col_h=np.asarray(A.col_ind),
-        b_len_h=np.asarray(A.nnz_row).astype(np.int64))
+    prods = bitonic.row_products(A, A)
+    plan, W = bitonic.plan_multiclass(prods)
     assert plan.viable
-    assert plan.ragged
+    # every row's class holds its own products, not Ka * Kb
+    assert (W >= prods).all()
+    assert (W < np.maximum(2 * prods, bitonic.MIN_CLASS_WIDTH + 1)).all()
     C = bitonic.spgemm_bitonic_multiclass(A, A)
     assert C is not None
     _check(a, a, C)
 
-
-def test_multiclass_forced_layouts():
-    """layout= forces the chunked/ragged decision; both layouts must
-    agree with the oracle on the same input (the A/B hook the on-chip
-    cost-model calibration uses)."""
-    rng = np.random.default_rng(21)
-    a = sp.random(128, 128, density=0.06,
-                  random_state=np.random.RandomState(21), format="csr")
-    a.data[:] = rng.standard_normal(a.nnz)
-    A = _ell(a)
-    for layout in ("chunked", "ragged"):
-        C = bitonic.spgemm_bitonic_multiclass(A, A, layout=layout)
-        assert C is not None, layout
-        _check(a, a, C)
-    plan_c, _ = bitonic.plan_multiclass(
-        np.asarray(A.nnz_row), A.max_nnz_per_row,
-        a_col_dev=A.col_ind, b_len_dev=A.nnz_row, layout="chunked")
-    assert plan_c.viable and not plan_c.ragged
-    plan_r, _ = bitonic.plan_multiclass(
-        np.asarray(A.nnz_row), A.max_nnz_per_row,
-        a_col_dev=A.col_ind, b_len_dev=A.nnz_row, layout="ragged")
-    assert plan_r.viable and plan_r.ragged
-
-
-def test_bitonic_sparse_output_mode():
-    """compact=False: survivors at sorted slots with -1 holes; nnz and
-    values agree exactly with the compacted result."""
-    rng = np.random.default_rng(19)
-    a = sp.random(96, 96, density=0.08,
-                  random_state=np.random.RandomState(19), format="csr")
-    a.data[:] = rng.standard_normal(a.nnz)
-    A = _ell(a)
-    dense_c = bitonic.spgemm_bitonic(A, A)
-    sparse_c = bitonic.spgemm_bitonic(A, A, compact=False)
-    assert np.array_equal(np.asarray(dense_c.nnz_row),
-                          np.asarray(sparse_c.nnz_row))
-    want = (a @ a).tocsr().astype(np.float32)
-    got = sparse_c.to_scipy()
-    d = abs(got - want)
-    assert (d.max() if d.nnz else 0.0) < 1e-4
-    # survivors sit at sorted-slot positions: each row's populated slots
-    # are a (possibly holey) suffix-free layout whose per-row count still
-    # matches nnz_row
-    col = np.asarray(sparse_c.col_ind)
-    assert ((col >= 0).sum(axis=1) == np.asarray(sparse_c.nnz_row)).all()
 
 def _skewed(seed, m, heavy_every=37, heavy=40, light=6):
     rng = np.random.default_rng(seed)
@@ -374,11 +311,8 @@ def test_multiclass_bcsr_ragged_b_skew():
     from ia_spgemm_tpu.formats.types import BlockCSR
     a = _skewed(23, 256, heavy_every=64, heavy=160, light=5)
     A = _ell(a)
-    plan, _ = bitonic.plan_multiclass(
-        np.asarray(A.nnz_row), A.max_nnz_per_row,
-        a_col_h=np.asarray(A.col_ind),
-        b_len_h=np.asarray(A.nnz_row).astype(np.int64))
-    assert plan.ragged
+    plan, _ = bitonic.plan_multiclass(bitonic.row_products(A, A))
+    assert plan.viable and len(plan.widths) > 1
     C = bitonic.spgemm_bitonic_multiclass(A, A, assemble="bcsr")
     assert isinstance(C, BlockCSR)
     _check(a, a, C)
@@ -408,61 +342,8 @@ def test_multiclass_bcsr_out_width_cap():
         assert (d.max() if d.nnz else 0.0) < 1e-4
 
 
-def test_multiclass_plan_device_matches_host():
-    """_device_fragments (telescoping scatter-add + row cumsums) produces
-    the SAME results as the host-numpy fragment oracle, for both
-    assemblies, on a ragged B-skew case."""
-    a = _skewed(29, 224, heavy_every=56, heavy=120, light=5)
-    A = _ell(a)
-    plan, _ = bitonic.plan_multiclass(
-        np.asarray(A.nnz_row), A.max_nnz_per_row,
-        a_col_h=np.asarray(A.col_ind),
-        b_len_h=np.asarray(A.nnz_row).astype(np.int64))
-    assert plan.ragged
-    for asm in ("ell", "bcsr"):
-        C_dev = bitonic.spgemm_bitonic_multiclass(
-            A, A, assemble=asm, plan_device=True)
-        C_host = bitonic.spgemm_bitonic_multiclass(
-            A, A, assemble=asm, plan_device=False)
-        assert np.array_equal(np.asarray(C_dev.nnz_row),
-                              np.asarray(C_host.nnz_row))
-        d = abs(C_dev.to_scipy() - C_host.to_scipy())
-        assert (d.max() if d.nnz else 0.0) == 0.0
-        _check(a, a, C_dev)
-
-
-def test_multiclass_time_model_prefers_ragged_on_uniform_midsize_rows():
-    """Planner regression: candidates are scored by the calibrated device-
-    time model (_candidate_time_ps), not slot count. On rows of ~17
-    entries whose B rows are also ~17 long (the headline shape), the
-    chunked layout pads every entry to pow2(kb)=32 slots while the ragged
-    layout at run=16 fits most entries in one 16-slot fragment — fewer
-    sort stages per row. The old slot-sum x2-ragged-penalty proxy picked
-    chunked here; the time model must pick ragged with run < pow2(kb)."""
-    rng = np.random.default_rng(21)
-    m = 2048
-    lens = rng.integers(12, 23, m)
-    rows = np.repeat(np.arange(m), lens)
-    cols = rng.integers(0, m, rows.shape[0])
-    a = sp.coo_matrix((np.ones(rows.shape[0], np.float32),
-                       (rows, cols)), shape=(m, m)).tocsr()
-    a.sum_duplicates()
-    A = _ell(a)
-    plan, W = bitonic.plan_multiclass(
-        np.asarray(A.nnz_row), A.max_nnz_per_row,
-        a_col_h=np.asarray(A.col_ind),
-        b_len_h=np.asarray(A.nnz_row).astype(np.int64))
-    assert plan.viable
-    assert plan.ragged
-    assert plan.run < bitonic._next_pow2(A.max_nnz_per_row)
-    # and the pipeline built from that plan stays correct
-    C = bitonic.spgemm_bitonic_multiclass(A, A)
-    assert C is not None
-    _check(a, a, C)
-
-
 def test_multiclass_plan_cache_hit_and_eviction():
-    """Repeat-call planning must be a cache hit (VERDICT r2 #6): the same
+    """Repeat-call planning must be a cache hit: the same
     ELL operands reuse the built pipeline; dead operands evict their
     entry so a recycled id() can never alias a stale plan."""
     import gc
@@ -558,75 +439,3 @@ def test_bitonic_bf16_pack_roundtrip():
         np.abs(np.asarray(vals)), 1e-30)
     assert (rel < 2 ** -8).all() or np.allclose(got, np.asarray(vals),
                                                 rtol=2 ** -8, atol=0)
-
-
-def test_multiclass_run_override():
-    """run_override= pins the sub-run length (the table-lane A/B hook:
-    run=32 packs 128-lane gather rows, run=16 packs 64-lane rows that
-    issue-bind the gather units — reports/tablegather_probe.json). Every
-    forced run must agree with the oracle; the plan must carry the
-    forced run."""
-    rng = np.random.default_rng(22)
-    a = sp.random(128, 128, density=0.06,
-                  random_state=np.random.RandomState(22), format="csr")
-    a.data[:] = rng.standard_normal(a.nnz)
-    A = _ell(a)
-    for run in (8, 16, 32):
-        plan, _ = bitonic.plan_multiclass(
-            np.asarray(A.nnz_row), A.max_nnz_per_row,
-            a_col_dev=A.col_ind, b_len_dev=A.nnz_row, run_override=run)
-        if not plan.viable:
-            continue
-        assert plan.run == run
-        C = bitonic.spgemm_bitonic_multiclass(A, A, run_override=run)
-        assert C is not None, run
-        _check(a, a, C)
-    # an override no candidate can satisfy degrades to inviable, not a
-    # crash (the caller's ESC fallback takes over)
-    plan, _ = bitonic.plan_multiclass(
-        np.asarray(A.nnz_row), A.max_nnz_per_row,
-        a_col_dev=A.col_ind, b_len_dev=A.nnz_row, run_override=3)
-    assert not plan.viable
-
-
-@pytest.mark.parametrize("a", [
-    _skewed(7, 300),
-    # B-skew with a wide (rows-layout) class: only the cols-layout
-    # classes pregather, the wide class keeps its per-call gather
-    _skewed(23, 256, heavy_every=64, heavy=160, light=5),
-], ids=["narrow", "mixed_wide"])
-def test_multiclass_pregather_matches(a):
-    """pregather=True materializes g = table[MT] at plan time; the
-    result must be bit-identical to the per-call gather (same kernels,
-    same operand values — only WHEN the gather runs differs)."""
-    A = _ell(a)
-    base = bitonic.multiclass_planned(A, A, assemble="bcsr")
-    pg = bitonic.multiclass_planned(A, A, assemble="bcsr",
-                                    pregather=True)
-    assert base is not None and pg is not None
-    C0, C1 = base(), pg()
-    assert np.array_equal(np.asarray(C0.nnz_row), np.asarray(C1.nnz_row))
-    assert np.array_equal(np.asarray(C0.col_blocks),
-                          np.asarray(C1.col_blocks))
-    assert np.array_equal(np.asarray(C0.val_blocks),
-                          np.asarray(C1.val_blocks))
-    _check(a, a, C1)
-
-
-def test_multiclass_pregather_packed_run8():
-    """The tuned headline config (run=8 -> _pg_pack=4 lane-packed g)
-    matches the per-call-gather result bit-for-bit."""
-    a = _skewed(11, 120)
-    A = _ell(a)
-    base = bitonic.multiclass_planned(A, A, assemble="bcsr",
-                                      run_override=8)
-    pg = bitonic.multiclass_planned(A, A, assemble="bcsr",
-                                    pregather=True, run_override=8)
-    assert base is not None and pg is not None
-    C0, C1 = base(), pg()
-    assert np.array_equal(np.asarray(C0.nnz_row), np.asarray(C1.nnz_row))
-    assert np.array_equal(np.asarray(C0.col_blocks),
-                          np.asarray(C1.col_blocks))
-    assert np.array_equal(np.asarray(C0.val_blocks),
-                          np.asarray(C1.val_blocks))
-    _check(a, a, C1)

@@ -1,4 +1,4 @@
-"""Pallas dense-row accumulator kernel parity (interpreter mode on CPU)."""
+"""Dense-row accumulator parity (ops/dense_row.py)."""
 
 import numpy as np
 import pytest
@@ -38,9 +38,17 @@ def test_dense_row_empty_rows():
 
 
 def test_dense_row_rejects_oversized_n():
+    """B and the (m, n) accumulator past the dense budget raise instead
+    of allocating."""
+    from ia_spgemm_tpu import config as cfg
     a = fixtures.random_csr(8, 8, density=0.5, seed=72)
     A = convert.csr_to_ell(CSR.from_scipy(a.astype(np.float32)),
                            check_guard=False)
-    B = Dense(values=np.zeros((8, dense_row.MAX_N_F32 + 128), np.float32))
-    with pytest.raises(ValueError, match="VMEM"):
-        dense_row.spgemm_dense_row(A, B)
+    B = Dense(values=np.zeros((8, 1024), np.float32))
+    small = cfg.SpGEMMConfig(dense_bytes_budget=16 * 1024 * 4 - 1)
+    with pytest.raises(ValueError, match="dense budget"):
+        dense_row.spgemm_dense_row(A, B, config=small)
+    # exactly at the budget it runs
+    fits = cfg.SpGEMMConfig(dense_bytes_budget=16 * 1024 * 4)
+    C = dense_row.spgemm_dense_row(A, B, config=fits)
+    assert np.asarray(C.values).shape == (8, 1024)

@@ -1,4 +1,4 @@
-"""Named SuiteSparse structure replicas (VERDICT r4 #9).
+"""Named SuiteSparse structure replicas.
 
 The reference's workloads are SuiteSparse matrices (README.md:10); this
 zero-egress environment replicates the mid-size SpGEMM-paper standards

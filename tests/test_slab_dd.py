@@ -1,6 +1,6 @@
-"""Compensated (double-double) slab engine (VERDICT r4 #6): fp64-grade
-accumulation at slab bandwidth — exact Dekker products, two-value-lane
-bitonic sort, two-sum compress."""
+"""Compensated (double-double) slab engine: fp64-grade accumulation
+through the slab pipeline — exact Dekker products, two-value-lane row
+sort, two-sum compress."""
 
 import numpy as np
 import scipy.sparse as sp
@@ -71,12 +71,12 @@ def test_compensated_auto_uses_slab_and_matches_global():
 
 
 def test_compensated_falls_back_when_slab_inviable():
-    """A row whose padded products exceed the slab width cap: auto must
-    still answer (global core), returning the CSR dd pair."""
+    """A row whose products exceed the slab width cap: auto must still
+    answer (global core), returning the CSR dd pair."""
     rng = np.random.default_rng(5)
     m = 256
     lens = rng.integers(1, 4, m)
-    lens[0] = 200    # 200 entries x ~mean B row -> > 1024 padded slots
+    lens[:8] = 200   # rows hitting row 0..7's 200 entries: > 1024 products
     rows = np.repeat(np.arange(m), lens)
     cols = rng.integers(0, m, rows.shape[0])
     a = sp.coo_matrix(

@@ -200,27 +200,6 @@ def test_symbolic_plan_matches_host():
     assert mx == int(want_rf.max())
 
 
-def test_rowexpand_variant_matches_gather():
-    """The f32 rowexpand expansion must agree with the gather expansion."""
-    import numpy as np
-    from tests import fixtures
-    a = fixtures.random_csr(80, 64, density=0.12, seed=80).astype(np.float32)
-    b = fixtures.random_csr(64, 96, density=0.1, seed=81).astype(np.float32)
-    A, B = CSR.from_scipy(a), CSR.from_scipy(b)
-    plan = esc.plan_spgemm(A, B)
-    assert plan.variant == "rowexpand"  # uniform rows -> low inflation
-    C1 = esc.spgemm_csr(A, B, plan)
-    gplan = esc.SpGEMMPlan(
-        expansion_capacity=plan.expansion_capacity,
-        out_capacity=plan.out_capacity, flops=plan.flops)
-    C2 = esc.spgemm_csr(A, B, gplan)
-    want = (a @ b).tocsr()
-    for C in (C1, C2):
-        got = C.to_scipy()
-        got.sum_duplicates()
-        assert abs(got - want).max() < 1e-4
-
-
 def test_compensated_matches_fp64_oracle():
     """Double-double accumulation: f32 operands, fp64-grade sums. A badly
     conditioned case (large +x paired with -x plus tiny residuals) that
@@ -296,10 +275,9 @@ def test_sliced_matches_unsliced_plan_results():
     assert (d.max() if d.nnz else 0.0) < fp_tol()
 
 
-@pytest.mark.skipif(
-    __import__("os").environ.get("IA_SPGEMM_TEST_TPU") != "1",
-    reason="E > 2^31 expansion needs the real chip (minutes on CPU)")
+@pytest.mark.gpu
 def test_sliced_esc_int32_overflow_expansion_completes():
+    # E > 2^31 expansion: minutes on the CPU backend, so GPU only
     """The reference's GPU handles expansions beyond any single workspace
     by row-slicing (coo_dev:388-450); round 1 raised on E >= 2^31. Build
     a matrix whose TOTAL expansion exceeds int32 but whose C stays small
@@ -351,11 +329,22 @@ def _assert_matches_f32(ours_sp, want):
 
 @pytest.mark.parametrize("name,a,b", _pairs())
 def test_spgemm_csr_auto(name, a, b):
-    """The production csr entry (tiled width-class route when viable,
-    global-sort ESC otherwise) matches the oracle on every fixture."""
+    """The production csr entry (default engine, and each engine forced)
+    matches the oracle on every fixture."""
     A = CSR.from_scipy(a.astype(np.float32))
     B = CSR.from_scipy(b.astype(np.float32))
     C = esc.spgemm_csr_auto(A, B)
+    _assert_matches_f32(C.to_scipy(), _oracle(a, b).astype(np.float32))
+
+
+@pytest.mark.parametrize("engine", ["global", "tiled", "slab", "hybrid"])
+@pytest.mark.parametrize("name,a,b", _pairs())
+def test_spgemm_csr_engines(name, a, b, engine):
+    """Each CSR engine named through spgemm_csr_auto matches the oracle
+    (an engine that is not viable for the input falls back to global)."""
+    A = CSR.from_scipy(a.astype(np.float32))
+    B = CSR.from_scipy(b.astype(np.float32))
+    C = esc.spgemm_csr_auto(A, B, engine=engine)
     _assert_matches_f32(C.to_scipy(), _oracle(a, b).astype(np.float32))
 
 
@@ -385,7 +374,7 @@ def test_spgemm_csr_tiled_skew_and_fallbacks():
     _assert_matches(C64.to_scipy(), _oracle(a, a))
 
 
-def test_plan_csr_tiled_budget_guard():
+def test_plan_csr_tiled_budget_guard(monkeypatch):
     """An operand whose padded ELL form exceeds the slot budget makes the
     tiled planner decline rather than allocate it."""
     # one dense-ish row of 3000 among 50k rows: m * K = 1.5e8 slots is
@@ -395,12 +384,9 @@ def test_plan_csr_tiled_budget_guard():
     a = sp.random(m, m, density=0.2, random_state=7, format="csr")
     A = CSR.from_scipy(a.astype(np.float32))
     import ia_spgemm_tpu.ops.esc as esc_mod
-    orig = esc_mod.TILED_ELL_BUDGET_ELEMS
-    try:
-        esc_mod.TILED_ELL_BUDGET_ELEMS = 8
-        assert esc_mod.plan_csr_tiled(A, A) is None
-    finally:
-        esc_mod.TILED_ELL_BUDGET_ELEMS = orig
+    assert esc_mod.plan_csr_tiled(A, A) is not None
+    monkeypatch.setattr(esc_mod, "tiled_ell_budget_elems", lambda: 8)
+    assert esc_mod.plan_csr_tiled(A, A) is None
 
 
 def test_plan_workspace_bucket_stays_int32():

@@ -13,7 +13,8 @@ from ia_spgemm_tpu.models import upcycle
 def test_roofline_analyze():
     cost = roofline.cost_esc(expansion=10_000_000, nnz_a=500_000,
                              nnz_b=500_000, nnz_c=7_000_000)
-    out = roofline.analyze(100.0, cost, chip=roofline.TPU_V5E)
+    out = roofline.analyze(100.0, cost,
+                           chip=roofline.PEAKS["NVIDIA H100 80GB HBM3"])
     assert out["bound"] == "memory"  # SpGEMM is bandwidth-bound
     assert 0 < out["pct_hbm_peak"] < 100
     assert out["speed_of_light_ms"] < 100.0
