@@ -18,14 +18,16 @@ the global sort takes its two-key path) and runs, in one process:
   3. rowsort   sort_compress_rows at the widths the tiled and slab
                planners chose, against a numpy reference;
   4. precision the compensated (double-double) engine at m=2**15 against
-               float64 scipy at its bound, and the bf16 serve lane at its
-               2e-2 checksum bound;
+               float64 scipy at its per-entry bound, on the cancelling
+               input (tests/fixtures.cancelling_csr) at its normwise
+               bound, and the bf16 serve lane at its 2e-2 checksum bound;
   5. matnet    MatNet with each shipped weight set on A's density images
                against the numpy oracle (tests/matnet_oracle.py).
 
 --four-cards runs only the multi-device path at m=2**20 on four GPUs:
 dist_spgemm (replicated and all-gathered B) and ring_spgemm, each
-compared with the one-card spgemm_csr_auto result and with scipy.
+gathered by its library gather_result and compared with the one-card
+spgemm_csr_auto result and with scipy, then the CLI's `--mode ring`.
 
 The last stdout line is one JSON object {"ok": true, "device": {...}}.
 Without a GPU, or when any phase fails, the script exits non-zero and
@@ -48,6 +50,9 @@ F32_RTOL = 1e-5
 # compensated results: ~2^-48 relative double-double sums plus the
 # float64 reference's own rounding, relative to (|A|.|B|)_ij
 DD_RTOL = 2.0 ** -46
+# compensated results on the cancelling input: max |c - c_ref| over
+# max(1, max |c_ref|), the lane's stated 3e-15
+DD_NORMWISE_TOL = 3e-15
 
 
 class PhaseError(RuntimeError):
@@ -270,6 +275,7 @@ def phase_precision(a15):
     from ia_spgemm_tpu.bench import harness
     from ia_spgemm_tpu.formats.types import CSR
     from ia_spgemm_tpu.ops import esc
+    from tests.fixtures import cancelling_csr
     A = CSR.from_scipy(a15)
     ref, absref = references(a15)
     out = {}
@@ -282,6 +288,25 @@ def phase_precision(a15):
             "bound": DD_RTOL, "result": type(C).__name__}
         log(f"  compensated ({engine} -> {type(C).__name__}): max err "
             f"{err:.3g} x |A||B| (bound {DD_RTOL:.3g}), steady {ms:.3f} ms")
+    for m in (64, a15.shape[0]):
+        ac = cancelling_csr(m).astype(np.float32)
+        cref, cabs = references(ac)
+        Ac = CSR.from_scipy(ac)
+        for engine in ("auto", "global"):
+            got = esc.spgemm_csr_compensated(Ac, Ac, engine=engine)
+            got = got.to_scipy().tocsr().astype(np.float64)
+            err = compare(got, cref, cabs, DD_RTOL)
+            d = abs(got - cref)
+            norm = (d.max() if d.nnz else 0.0) / max(1.0, abs(cref).max())
+            check(norm <= DD_NORMWISE_TOL,
+                  f"cancelling m={m} {engine}: normwise {norm:.3g} > "
+                  f"{DD_NORMWISE_TOL:.3g}")
+            out[f"cancelling_{m}_{engine}"] = {
+                "normwise_err": norm, "bound": DD_NORMWISE_TOL,
+                "max_err": err}
+            log(f"  compensated ({engine}), cancelling m={m}: normwise "
+                f"{norm:.3g} (bound {DD_NORMWISE_TOL:.3g}), max err "
+                f"{err:.3g} x |A||B|")
     rep = harness.run_benchmark(A, A, ("baseline", "serve"), iters=1)
     serve, base = rep.by_name("serve"), rep.by_name("baseline")
     check(serve.ok and not serve.error,
@@ -325,34 +350,13 @@ def phase_matnet(A):
     return out
 
 
-def sharded_to_scipy(C, D):
-    """Host scipy CSR of a row-sharded result (dist ShardedCSR or ring
-    ShardedELL) without assembling it on a device."""
-    import scipy.sparse as sp
-    m, n = C.shape
-    if hasattr(C, "row_map"):
-        col = np.asarray(C.col_ind).reshape(-1, C.width)
-        val = np.asarray(C.values).reshape(-1, C.width)
-        rmap = np.asarray(C.row_map).reshape(-1)
-        keep = (col >= 0) & (rmap[:, None] >= 0)
-        rows = np.broadcast_to(rmap[:, None], col.shape)[keep]
-        return sp.csr_matrix((val[keep], (rows, col[keep])), shape=(m, n))
-    rp, col, val = (np.asarray(x) for x in (C.row_ptr, C.col_ind, C.values))
-    nnz, rs = np.asarray(C.nnz), np.asarray(C.row_start)
-    parts = []
-    for d in range(D):
-        nr = (int(rs[d + 1]) if d + 1 < D else m) - int(rs[d])
-        parts.append(sp.csr_matrix(
-            (val[d, :nnz[d]], col[d, :nnz[d]], rp[d, :nr + 1]),
-            shape=(nr, n)))
-    return sp.vstack(parts).tocsr()
-
-
-def phase_four_cards(a32, ref, absref):
+def phase_four_cards(a32, ref, absref, work_dir):
     """dist_spgemm (replicated and all-gathered B) and ring_spgemm over a
-    4-device mesh, each against scipy and the one-card result."""
+    4-device mesh, each gathered by its library gather_result and checked
+    against scipy and the one-card result; then the CLI's --mode ring."""
     import jax
     from ia_spgemm_tpu import autotune
+    from ia_spgemm_tpu.cli.main import main as cli_main
     from ia_spgemm_tpu.formats import convert
     from ia_spgemm_tpu.formats.types import CSR
     from ia_spgemm_tpu.ops import esc
@@ -376,21 +380,22 @@ def phase_four_cards(a32, ref, absref):
     As = dist.partition_rows(A, D, balance="flops", B=A, mesh=mesh)
     Bs = dist.partition_rows(A, D, mesh=mesh)
     runs = {
-        "dist_replicated_B": lambda: dist.dist_spgemm(
-            As, A, mesh, e_cap=e_cap, out_cap=out_cap),
-        "dist_allgather_B": lambda: dist.dist_spgemm(
-            As, Bs, mesh, e_cap=e_cap, out_cap=out_cap),
+        "dist_replicated_B": (lambda: dist.dist_spgemm(
+            As, A, mesh, e_cap=e_cap, out_cap=out_cap), dist.gather_result),
+        "dist_allgather_B": (lambda: dist.dist_spgemm(
+            As, Bs, mesh, e_cap=e_cap, out_cap=out_cap), dist.gather_result),
     }
     A_ell = convert.csr_to_ell(A, check_guard=False)
     plan = ring.plan_ring(A_ell, A_ell, D)
     check(plan.viable, f"ring plan: {plan.reason}")
     Ae = ring.partition_rows_ell(A_ell, D, mesh=mesh)
-    runs["ring"] = lambda: ring.ring_spgemm(Ae, Ae, mesh, plan)
-    for name, call in runs.items():
+    runs["ring"] = (lambda: ring.ring_spgemm(Ae, Ae, mesh, plan),
+                    ring.gather_result)
+    for name, (call, gather) in runs.items():
         C, first_s, ms = timed(call)
         ndev = len(C.values.sharding.device_set)
         check(ndev == D, f"{name}: result on {ndev} devices, not {D}")
-        got = sharded_to_scipy(C, D)
+        got = gather(C).to_scipy()
         del C
         err = compare(got, ref, absref, F32_RTOL)
         vs_one = compare(got, one_sp, absref, F32_RTOL)
@@ -400,6 +405,23 @@ def phase_four_cards(a32, ref, absref):
         log(f"  {name}: {ndev} devices, first call {first_s:.2f} s, "
             f"steady {ms:.3f} ms, max err {err:.3g} (scipy), "
             f"{vs_one:.3g} (one card)")
+    del As, Bs, Ae, A_ell
+    path = write_matrix(a32, work_dir)
+    out_json = os.path.join(work_dir, "cli_ring.json")
+    t0 = time.perf_counter()
+    rc = cli_main([path, "--mode", "ring", "--shards", str(D),
+                   "--no-matnet", "--iters", "1", "--json", out_json])
+    wall = time.perf_counter() - t0
+    os.remove(path)
+    check(rc == 0, f"CLI --mode ring exited {rc}")
+    with open(out_json) as f:
+        rep = json.load(f)
+    check(rep["nnz_out"] == absref.nnz,
+          f"CLI ring nnz {rep['nnz_out']} != {absref.nnz}")
+    out["cli_ring"] = {"wall_s": wall, "run_ms": rep["run_time_ms"],
+                       "checksum_rel_err": rep["checksum_rel_err"]}
+    log(f"  cli --mode ring: {wall:.1f} s, run {rep['run_time_ms']:.3f} ms, "
+        f"checksum rel err {rep['checksum_rel_err']:.3g}")
     return out
 
 
@@ -454,7 +476,8 @@ def main(argv=None):
     log(f"A: {m}x{m}, nnz {a32.nnz}, products {get_flop(A, A)}, "
         f"nnz(C) {absref.nnz} (set-up {time.perf_counter() - t0:.1f} s)")
     if args.four_cards:
-        run_phase("four_cards", results, phase_four_cards, a32, ref, absref)
+        run_phase("four_cards", results, phase_four_cards, a32, ref, absref,
+                  args.work_dir)
     else:
         plan = esc.plan_spgemm(A, A)
         lowered = esc._esc_core.lower(

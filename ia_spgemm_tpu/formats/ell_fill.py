@@ -1,11 +1,9 @@
 """Gather-based CSR->ELL fill.
 
 The reference's CSRtoELL packs rows left-justified with a serial loop
-(ell/common_ell.h:30-77). Two device strategies exist:
-
-- scatter (formats/convert.py _csr_to_ell_fill): one scatter per nnz.
-- gather (here): out[r, j] = entries[rp[r] + j], masked at j >= len(r) —
-  one packed (col | value-bits) gather at (m*K) positions.
+(ell/common_ell.h:30-77). On the device: out[r, j] = entries[rp[r] + j],
+masked at j >= len(r) — one packed (col | value-bits) gather at (m*K)
+positions.
 """
 
 from __future__ import annotations

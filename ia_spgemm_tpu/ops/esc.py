@@ -589,33 +589,28 @@ def plan_csr_engine(A: CSR, B: CSR, engine: str,
 
 
 def plan_csr_auto(A: CSR, B: CSR, plan: SpGEMMPlan | None = None,
-                  bucket=True, engine: str | None = None):
+                  bucket=True):
     """Plan the production CSR @ CSR route: predict each viable engine's
     device time (predict_csr_route_ms) and construct the cheapest one,
     falling through to the next candidate when a full planner declines
     (the cheap pre-checks are a superset, not a proof, of viability).
-    Naming an engine forces it, with 'global' behind it. Returns
-    (route_name, zero-arg runner)."""
-    if engine is not None:
-        order = [engine, "global"]
-    else:
-        pred = predict_csr_route_ms(A, B)
-        order = sorted(pred, key=pred.get)
-    for route in order:
+    Returns (route_name, zero-arg runner); plan_csr_engine runs one
+    named engine."""
+    pred = predict_csr_route_ms(A, B)
+    for route in sorted(pred, key=pred.get):
         call = plan_csr_engine(A, B, route, plan, bucket)
         if call is not None:
             return route, call
     raise AssertionError("unreachable: 'global' is always viable")
 
 
-def spgemm_csr_auto(A: CSR, B: CSR, plan: SpGEMMPlan | None = None,
-                    engine: str | None = None):
+def spgemm_csr_auto(A: CSR, B: CSR, plan: SpGEMMPlan | None = None):
     """Production CSR @ CSR entry point: the reference's CSR_MUL_CSR
     role (csr/common_csr.h:85-193), with the engine chosen by the card-
-    fitted cost model unless one is named (see plan_csr_auto). Returns
-    CSR (global), BlockCSR (tiled), SlabCSR (slab) or HybridCSR
-    (hybrid); all satisfy the checksum/to_scipy result contract."""
-    _route, call = plan_csr_auto(A, B, plan, engine=engine)
+    fitted cost model (see plan_csr_auto). Returns CSR (global), BlockCSR
+    (tiled), SlabCSR (slab) or HybridCSR (hybrid); all satisfy the
+    checksum/to_scipy result contract."""
+    _route, call = plan_csr_auto(A, B, plan)
     return call()
 
 

@@ -31,7 +31,12 @@ import jax.numpy as jnp
 import numpy as np
 from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
 
-from ia_spgemm_tpu.formats.types import ELL, pytree_dataclass, static_field
+from ia_spgemm_tpu.formats.types import (
+    CSR,
+    ELL,
+    pytree_dataclass,
+    static_field,
+)
 from ia_spgemm_tpu.ops import bitonic
 from ia_spgemm_tpu.ops.rowsort import SENTINEL, sort_compress_rows
 
@@ -231,22 +236,48 @@ def _ring_fn(mesh: Mesh, D: int, m_loc: int, k_loc: int, ka: int, kb: int,
         check_vma=False))
 
 
-def gather_result_ell(C: ShardedELL) -> ELL:
-    """Host-side: fuse the row-sharded result into one global ELL,
-    inverting the partition's row permutation."""
+def _host_blocks(x):
+    """(first shard, host copy) of each distinct device block of a
+    leading-axis-sharded (D, ...) array, read device by device: no
+    device ever holds more than its own block."""
+    blocks = {}
+    for sh in x.addressable_shards:
+        start = sh.index[0].start or 0
+        if start not in blocks:
+            blocks[start] = np.asarray(sh.data)
+    return sorted(blocks.items())
+
+
+def gather_result(C: ShardedELL) -> CSR:
+    """Host-side: fuse the row-sharded ELL result into one global CSR,
+    inverting the partition's row permutation. The (m, width) ELL is
+    never assembled: each device block is compacted on the host into
+    the CSR entry stream."""
     m, n = C.shape
     w = C.width
-    col = np.asarray(C.col_ind).reshape(-1, w)
-    val = np.asarray(C.values).reshape(-1, w)
-    nnz_row = np.asarray(C.nnz_row).reshape(-1)
-    rmap = np.asarray(C.row_map).reshape(-1)
-    sel = rmap >= 0
-    out_col = np.full((m, w), -1, np.int32)
-    out_val = np.zeros((m, w), val.dtype)
-    out_nnz = np.zeros(m, np.int32)
-    out_col[rmap[sel]] = col[sel]
-    out_val[rmap[sel]] = val[sel]
-    out_nnz[rmap[sel]] = nnz_row[sel]
-    return ELL(col_ind=jnp.asarray(out_col), values=jnp.asarray(out_val),
-               nnz_row=jnp.asarray(out_nnz),
-               nnz=jnp.asarray(np.int32(out_nnz.sum())), shape=(m, n))
+    nnz_row = np.asarray(C.nnz_row).reshape(-1).astype(np.int64)
+    rmap = np.asarray(C.row_map).reshape(-1).astype(np.int64)
+    live = rmap >= 0
+    nnz_row = np.where(live, nnz_row, 0)
+    lens = np.zeros(m, np.int64)
+    lens[rmap[live]] = nnz_row[live]
+    row_ptr = np.concatenate([[0], np.cumsum(lens)])
+    total = int(row_ptr[-1])
+    out_col = np.full(max(total, 1), n, np.int32)
+    out_val = np.zeros(max(total, 1), C.values.dtype)
+    m_loc = C.rows_per_shard
+    for (d0, cb), (_, vb) in zip(_host_blocks(C.col_ind),
+                                 _host_blocks(C.values)):
+        r0 = d0 * m_loc
+        rows = slice(r0, r0 + cb.shape[0] * m_loc)
+        cnt = nnz_row[rows]
+        keep = np.arange(w) < cnt[:, None]
+        # row-major selection keeps each row's left-justified entries in
+        # order; row r's run starts at row_ptr[rmap[r]]
+        start = np.repeat(row_ptr[np.maximum(rmap[rows], 0)], cnt)
+        first = np.repeat(np.cumsum(cnt) - cnt, cnt)
+        dst = start + np.arange(int(cnt.sum())) - first
+        out_col[dst] = cb.reshape(-1, w)[keep]
+        out_val[dst] = vb.reshape(-1, w)[keep]
+    return CSR.from_arrays(row_ptr.astype(np.int32), out_col, out_val,
+                           (m, n), nnz=total)

@@ -27,6 +27,22 @@ def banded_csr(m, bandwidth=3, seed=0, dtype=np.float64):
     return sp.diags(diags, offsets, shape=(m, m)).tocsr()
 
 
+def cancelling_csr(m, seed=42, per_row=6):
+    """Badly conditioned rows: +big / -big + residual pairs, so f32 row
+    sums of A @ A cancel catastrophically (the compensated lane's
+    accuracy input)."""
+    rng = np.random.default_rng(seed)
+    rows, cols, vals = [], [], []
+    for r in range(m):
+        ks = rng.choice(m, size=per_row, replace=False)
+        big = rng.standard_normal() * 1e4
+        for t, k_ in enumerate(ks):
+            rows.append(r)
+            cols.append(int(k_))
+            vals.append(big if t % 2 == 0 else -big + rng.standard_normal())
+    return sp.coo_matrix((vals, (rows, cols)), shape=(m, m)).tocsr()
+
+
 def mtx_text(kind):
     """Tiny hand-written .mtx files covering the reference suite's axes."""
     if kind == "general_real":

@@ -67,6 +67,10 @@ def test_phase_precision():
     a15 = build_matrix(m=256, seed=1).astype(np.float32)
     out = cs.phase_precision(a15)
     assert out["compensated_auto"]["max_err"] <= cs.DD_RTOL
+    for m in (64, 256):
+        for engine in ("auto", "global"):
+            got = out[f"cancelling_{m}_{engine}"]
+            assert got["normwise_err"] <= cs.DD_NORMWISE_TOL
     assert out["serve"]["checksum_rel_err"] <= out["serve"]["bound"]
 
 
@@ -75,7 +79,8 @@ def test_phase_matnet(small):
     assert set(out) == {"Intel", "Amd", "P100"}
 
 
-def test_phase_four_cards(small):
-    out = cs.phase_four_cards(*(small[0], small[2], small[3]))
+def test_phase_four_cards(small, tmp_path):
+    out = cs.phase_four_cards(small[0], small[2], small[3], str(tmp_path))
     for name in ("dist_replicated_B", "dist_allgather_B", "ring"):
         assert out[name]["devices"] == 4
+    assert out["cli_ring"]["checksum_rel_err"] < 1e-4

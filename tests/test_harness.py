@@ -109,6 +109,22 @@ def test_cli_tpu_weight_set(tmp_path, capsys):
     assert "ran algorithm" in capsys.readouterr().out
 
 
+@pytest.mark.parametrize("mode", ["dist", "ring"])
+def test_cli_distributed_modes(tmp_path, capsys, mode):
+    """--mode dist/ring row-shard C = A @ A over a 4-device mesh and
+    gather the result on the host; the checksum matches scipy's."""
+    from ia_spgemm_tpu.cli.main import main
+    path = fixtures.mtx_file(tmp_path, "general_real")
+    out = str(tmp_path / "dist.json")
+    rc = main([path, "--mode", mode, "--shards", "4", "--no-matnet",
+               "--iters", "1", "--json", out])
+    assert rc == 0
+    assert "[ok]" in capsys.readouterr().out
+    with open(out) as f:
+        rep = json.load(f)
+    assert rep["shards"] == 4 and rep["checksum_rel_err"] < 1e-4
+
+
 def test_cli_gpu_profile_end_to_end(tmp_path, capsys):
     """The composed GPU-driver profile replays the reference GPU flow
     (main.cu:30-557) as ONE configuration: load A -> B = A^T -> density

@@ -33,7 +33,7 @@ def _run(a, b, mesh, D=8):
     plan = ring.plan_ring(A, B, D)
     assert plan.viable, plan.reason
     C = ring.ring_spgemm(As, Bs, mesh, plan)
-    got = ring.gather_result_ell(C).to_scipy()
+    got = ring.gather_result(C).to_scipy()
     want = (a @ b).tocsr().astype(np.float32)
     d = abs(got - want)
     err = d.max() if d.nnz else 0.0
@@ -65,7 +65,7 @@ def test_ring_matches_single_device_bitonic(mesh):
     single = bitonic.spgemm_bitonic(A, A)
     As = ring.partition_rows_ell(A, 8, mesh=mesh)
     plan = ring.plan_ring(A, A, 8)
-    C = ring.gather_result_ell(ring.ring_spgemm(As, As, mesh, plan))
+    C = ring.gather_result(ring.ring_spgemm(As, As, mesh, plan))
     d = abs(C.to_scipy() - single.to_scipy())
     assert (d.max() if d.nnz else 0.0) < 1e-5
 
@@ -81,7 +81,7 @@ def test_ring_flops_balanced(mesh):
     Bs = ring.partition_rows_ell(A, 8, mesh=mesh)
     plan = ring.plan_ring(A, A, 8)
     C = ring.ring_spgemm(As, Bs, mesh, plan)
-    got = ring.gather_result_ell(C).to_scipy()
+    got = ring.gather_result(C).to_scipy()
     want = (a @ a).tocsr().astype(np.float32)
     d = abs(got - want)
     assert (d.max() if d.nnz else 0.0) < 1e-4
@@ -100,7 +100,7 @@ def test_ring_permuted_B(mesh):
     Bs = ring.partition_rows_ell(A, 8, mesh=mesh, balance="flops")
     plan = ring.plan_ring(A, A, 8)
     C = ring.ring_spgemm(As, Bs, mesh, plan)
-    got = ring.gather_result_ell(C).to_scipy()
+    got = ring.gather_result(C).to_scipy()
     want = (a @ a).tocsr().astype(np.float32)
     d = abs(got - want)
     assert (d.max() if d.nnz else 0.0) < 1e-4
@@ -128,7 +128,7 @@ def test_ring_subrun_split(mesh):
     As = ring.partition_rows_ell(A, 8, mesh=mesh)
     Bs = ring.partition_rows_ell(A, 8, mesh=mesh)
     C = ring.ring_spgemm(As, Bs, mesh, plan)
-    got = ring.gather_result_ell(C).to_scipy()
+    got = ring.gather_result(C).to_scipy()
     want = (a @ a).tocsr().astype(np.float32)
     d = abs(got - want)
     assert (d.max() if d.nnz else 0.0) < 2e-4

@@ -204,22 +204,7 @@ def test_compensated_matches_fp64_oracle():
     """Double-double accumulation: f32 operands, fp64-grade sums. A badly
     conditioned case (large +x paired with -x plus tiny residuals) that
     plain f32 accumulation gets wrong by ~1e-2."""
-    import numpy as np
-    import scipy.sparse as sp
-    rng = np.random.default_rng(42)
-    m = 64
-    rows, cols, vals = [], [], []
-    for r in range(m):
-        ks = rng.choice(m, size=6, replace=False)
-        big = rng.standard_normal() * 1e4
-        for t, k_ in enumerate(ks):
-            rows.append(r)
-            cols.append(int(k_))
-            # pairs of +/- big values with small residuals: the row sums
-            # cancel catastrophically in f32
-            vals.append(big if t % 2 == 0 else -big + rng.standard_normal())
-    a64 = sp.coo_matrix((vals, (rows, cols)), shape=(m, m)).tocsr()
-    a32 = a64.astype(np.float32)
+    a32 = fixtures.cancelling_csr(64, seed=42).astype(np.float32)
     # oracle on the EXACT f32-rounded inputs, accumulated in f64
     want = (a32.astype(np.float64) @ a32.astype(np.float64)).tocsr()
     A = CSR.from_scipy(a32)
@@ -340,12 +325,16 @@ def test_spgemm_csr_auto(name, a, b):
 @pytest.mark.parametrize("engine", ["global", "tiled", "slab", "hybrid"])
 @pytest.mark.parametrize("name,a,b", _pairs())
 def test_spgemm_csr_engines(name, a, b, engine):
-    """Each CSR engine named through spgemm_csr_auto matches the oracle
-    (an engine that is not viable for the input falls back to global)."""
+    """Each CSR engine run by name through plan_csr_engine matches the
+    oracle; an engine that is not viable for the input returns None."""
     A = CSR.from_scipy(a.astype(np.float32))
     B = CSR.from_scipy(b.astype(np.float32))
-    C = esc.spgemm_csr_auto(A, B, engine=engine)
-    _assert_matches_f32(C.to_scipy(), _oracle(a, b).astype(np.float32))
+    call = esc.plan_csr_engine(A, B, engine)
+    if engine == "global":
+        assert call is not None
+    if call is None:
+        return
+    _assert_matches_f32(call().to_scipy(), _oracle(a, b).astype(np.float32))
 
 
 def test_spgemm_csr_tiled_skew_and_fallbacks():
